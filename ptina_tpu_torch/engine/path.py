@@ -1,0 +1,183 @@
+'''
+Unidirectional path integrator with multiple importance sampling, in its
+wavefront form.
+
+Reference: ptina_tpu/engine/path.py (reference ptina/engine/path.py:17-93).
+The whole [N]-ray batch advances bounce by bounce with alive masks.  Per
+bounce: closest cast with shading attributes -> direct light hit (MIS
+against the previous BSDF pdf) -> environment on a miss -> next-event
+estimation (light sample + shadow cast + BSDF eval + MIS) -> BSDF bounce.
+Every bounce runs on every lane (a Python loop over a fixed depth, like
+the reference's scan), so each bounce launches exactly one closest cast
+and one shadow cast.
+
+Random-number contract: each path consumes a fixed [2 + 6 * depth, N]
+uniform block: 2 lens dims, then per bounce 3 for the light sample and 3
+for the BSDF sample.  No RNG is drawn: the uniforms are rotated Sobol.
+
+Only the wavefront route is ported.  render_sample(fused=True) raises
+until the megakernel lands; fused=None and fused=False take the
+wavefront.  No gradients flow in this slice.
+'''
+
+import torch
+
+from ptina_tpu_torch.utils.mathutils import EPS, INF, clamp
+from ptina_tpu_torch.utils.vec import (V3, vdot, vdot_or_zero, vnormalize,
+                                       vwhere, vavg3)
+from ptina_tpu_torch.camera import camera_rays
+from ptina_tpu_torch.intersect.dispatch import cast_shadow, cast_shaded
+from ptina_tpu_torch.lights import lights_hit, lights_sample, world_at
+from ptina_tpu_torch.mtllib import fetch_material
+from ptina_tpu_torch.materials.simple import bsdf_eval, bsdf_sample
+from ptina_tpu_torch.sampling.sobol import sample_dims, pixel_rotation
+from ptina_tpu_torch.film import film_add
+
+__all__ = ['MAX_DEPTH', 'PATH_DIMS', 'power_heuristic', 'path_trace',
+           'pixel_grid', 'render_sample', 'render']
+
+MAX_DEPTH = 5
+PATH_DIMS = 2 + 6 * MAX_DEPTH  # = 32
+
+
+def power_heuristic(a, b):
+    '''Squared power heuristic.'''
+    a = clamp(a, EPS, INF) ** 2
+    b = clamp(b, EPS, INF) ** 2
+    return a / (a + b)
+
+
+def _cast_and_shade(scene, ro, rd, avoid):
+    '''Closest cast with fused attributes -> hit point, two-sided normal,
+    material.'''
+    hit, normal, tex_s, tex_t, mtlid = cast_shaded(scene, ro, rd, avoid)
+    hitpos = ro + rd * hit.t
+    sign = -vdot(rd, normal)
+    normal = vwhere(sign < 0, -normal, normal)
+    material = fetch_material(scene, mtlid, tex_s, tex_t)
+    return hit, hitpos, normal, sign, material
+
+
+def _any3(v):
+    return (v.x > 0.0) | (v.y > 0.0) | (v.z > 0.0)
+
+
+def _bounce(scene, carry, u, model='disney'):
+    '''One wavefront bounce.  carry: (ro, rd, throughput, result,
+    last_brdf_pdf, avoid, alive); u: this bounce's [6, N] uniforms.'''
+    ro, rd, throughput, result, last_brdf_pdf, avoid, alive = carry
+    rd = vnormalize(rd)
+    hit, hitpos, normal, sign, material = _cast_and_shade(scene, ro, rd,
+                                                          avoid)
+
+    # direct light hit with MIS
+    lit = lights_hit(scene.lights, ro, rd)
+    lit_vis = lit['hit'] & (~hit.hit | (lit['dis'] < hit.t))
+    mis = power_heuristic(last_brdf_pdf, lit['pdf'])
+    result = result + vwhere(alive & lit_vis,
+                             throughput * lit['color'] * mis, 0.0)
+
+    # environment on a miss, then the lane dies
+    miss = ~hit.hit
+    result = result + vwhere(alive & miss, throughput * world_at(scene, rd),
+                             0.0)
+    live = alive & ~miss
+
+    # next-event estimation.  Lanes without a surface hit get a PARKED
+    # shadow ray (origin 0, +z, tmax 0): their NEE is masked out anyway,
+    # and the parked ray never occludes.
+    li = lights_sample(scene.lights, hitpos, u[0], u[1], u[2])
+    ro_sh = vwhere(hit.hit, hitpos, 0.0)
+    rd_sh = vwhere(hit.hit, li['dir'], V3.full_like(hitpos, (0, 0, 1)))
+    tmax_sh = torch.where(hit.hit, li['dis'], 0.0)
+    occ = cast_shadow(scene, ro_sh, rd_sh, hit.index, tmax_sh)
+    brdf_clr = bsdf_eval(model, material, normal, sign, -rd, li['dir'],
+                         zero=scene.materials.zero)
+    brdf_pdf = vavg3(brdf_clr)
+    mis2 = power_heuristic(li['pdf'], brdf_pdf)
+    nee = li['color'] * brdf_clr * (mis2 * vdot_or_zero(normal, li['dir']))
+    nee_ok = live & ~occ & _any3(li['color'])
+    result = result + vwhere(nee_ok, throughput * nee, 0.0)
+
+    # BSDF bounce.  Dead lanes are PARKED on the degenerate ray at the
+    # origin pointing +z (their radiance is final).
+    outdir, pdf, color = bsdf_sample(model, material, normal, sign, -rd,
+                                     u[3], u[4], u[5],
+                                     zero=scene.materials.zero)
+    throughput = vwhere(live, throughput * color, throughput)
+    park = V3.full_like(hitpos, (0.0, 0.0, 1.0))
+    ro = vwhere(live, hitpos, 0.0)
+    rd = vwhere(live, outdir, park)
+    avoid = torch.where(live, hit.index, avoid)
+    last_brdf_pdf = torch.where(live, pdf, last_brdf_pdf)
+    alive = live & _any3(throughput) \
+        & ((rd.x != 0.0) | (rd.y != 0.0) | (rd.z != 0.0))
+    return (ro, rd, throughput, result, last_brdf_pdf, avoid, alive)
+
+
+def path_trace(scene, ro, rd, uniforms, model='disney'):
+    '''Trace [N] rays to completion.  uniforms: [2 + 6 * depth, N]; the
+    bounce count is carried by its row count.  Returns radiance V3.
+
+    last_brdf_pdf starts at INF, not 0 as in ptina: before the first
+    bounce there is no competing light-sampling strategy, so a directly
+    visible emitter is collected at full weight.'''
+    depth = (uniforms.shape[0] - 2) // 6
+    zero = torch.zeros_like(ro.x)
+    one = torch.ones_like(ro.x)
+    carry = (ro, rd, V3(one, one, one), V3(zero, zero, zero),
+             torch.full_like(ro.x, INF),
+             torch.full(ro.x.shape, -1, dtype=torch.int32,
+                        device=ro.x.device),
+             torch.ones_like(ro.x, dtype=torch.bool))
+    for b in range(depth):
+        carry = _bounce(scene, carry, uniforms[2 + 6 * b:8 + 6 * b], model)
+    return carry[3]
+
+
+def pixel_grid(nx, ny, x0=0, y0=0, device='cpu'):
+    '''Flattened global pixel ids [N] of an (nx, ny) film tile at offset
+    (x0, y0), 'ij' order (x major).'''
+    ii, jj = torch.meshgrid(
+        x0 + torch.arange(nx, dtype=torch.int32, device=device),
+        y0 + torch.arange(ny, dtype=torch.int32, device=device),
+        indexing='ij')
+    return ii.reshape(-1), jj.reshape(-1)
+
+
+def render_sample(scene, film, sample_index, fused=None, model='disney',
+                  max_depth=MAX_DEPTH, rot=None):
+    '''Accumulate one progressive sample over the whole film into pass 0,
+    in place; returns the film.
+
+    fused: None or False = the wavefront (the megakernel is not ported
+    yet: True raises).  rot: optional precomputed pixel_rotation — pass it
+    from per-sample loops.  The reference's tile offsets (x0, y0,
+    full_res) serve its tiled and distributed engines and come with them.'''
+    if fused:
+        raise NotImplementedError(
+            'the path megakernel (reference engine/fused.py) is not ported '
+            'yet; use fused=None or False for the wavefront')
+    _, _, nx, ny = film.shape
+    ii, jj = pixel_grid(nx, ny, device=film.device)
+    dims = 2 + 6 * max_depth
+    u = sample_dims(sample_index, ii, jj, dims, rot=rot)
+    x = (ii.to(torch.float32) + u[0]) / nx * 2.0 - 1.0
+    y = (jj.to(torch.float32) + u[1]) / ny * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    rad = path_trace(scene, ro, rd, u, model)
+    return film_add(film, 0, rad.x, rad.y, rad.z, torch.ones_like(rad.x))
+
+
+def render(scene, film, start_sample, spp=1, model='disney',
+           max_depth=MAX_DEPTH):
+    '''Render `spp` progressive samples from `start_sample` into the film
+    (in place; returns it).  The per-pixel rotation is sample-invariant
+    and computed once per call.'''
+    _, _, nx, ny = film.shape
+    ii, jj = pixel_grid(nx, ny, device=film.device)
+    rot = pixel_rotation(ii, jj, 2 + 6 * max_depth)
+    for s in range(spp):
+        film = render_sample(scene, film, int(start_sample) + s, model=model,
+                             max_depth=max_depth, rot=rot)
+    return film

@@ -1,0 +1,45 @@
+'''
+Progressive film: a [passes, 4, nx, ny] accumulator whose channel 3
+counts samples.
+
+Reference: ptina_tpu/film.py.  Same channel-major layout.  The port
+accumulates IN PLACE (film_add returns the film it was given, updated):
+the reference returns a new value and donates the old buffer, which is
+the same memory behaviour.
+'''
+
+import torch
+
+__all__ = ['new_film', 'film_add', 'film_to_image', 'PASS_COMBINED',
+           'PASS_ALBEDO', 'PASS_NORMAL', 'DEBUG_PINK']
+
+PASS_COMBINED = 0
+PASS_ALBEDO = 1
+PASS_NORMAL = 2
+
+DEBUG_PINK = (0.9, 0.4, 0.9, 0.0)
+
+
+def new_film(nx, ny, passes=3, device='cpu'):
+    return torch.zeros((passes, 4, nx, ny), dtype=torch.float32,
+                       device=device)
+
+
+def film_add(film, pass_id, r, g, b, w):
+    '''Add per-pixel contributions into one pass, in place.  r/g/b/w:
+    [nx, ny] or [nx * ny] (row-major over (x, y), the pixel_grid order).'''
+    nx, ny = film.shape[2], film.shape[3]
+    film[pass_id] += torch.stack([c.reshape(nx, ny) for c in (r, g, b, w)])
+    return film
+
+
+def film_to_image(film, pass_id=0):
+    '''Normalize a pass to an [nx, ny, 4] image; empty pixels become the
+    reference's debug pink.'''
+    val = film[pass_id].permute(1, 2, 0)
+    w = val[..., 3:4]
+    has = w != 0.0
+    rgb = torch.where(has, val[..., :3] / torch.where(has, w, 1.0), 0.0)
+    out = torch.cat([rgb, has.to(val.dtype)], dim=-1)
+    pink = torch.tensor(DEBUG_PINK, dtype=val.dtype, device=val.device)
+    return torch.where(has, out, pink)

@@ -1,0 +1,80 @@
+'''
+Microfacet helpers, elementwise over [N] rows.
+
+Reference: ptina_tpu/materials/microfacet.py (reference
+ptina/materials/microfacet.py).  Every division is guarded so masked-out
+lanes stay finite.  The visible-normal sampler (disabled in the
+reference's Disney) is not ported.
+'''
+
+import torch
+
+from ptina_tpu_torch.utils.mathutils import PI, clamp, safe_sqrt
+from ptina_tpu_torch.utils.vec import vspherical
+
+__all__ = ['schlick_fresnel', 'dielectric_fresnel', 'gtr1', 'gtr2',
+           'smith_ggx', 'sample_gtr1', 'sample_gtr2', 'pow5']
+
+
+def pow5(x):
+    '''x ** 5 by squaring, the multiplication chain of the reference's
+    integer power (x * x^4).'''
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def schlick_fresnel(cost):
+    '''(1 - cos)^5.'''
+    return pow5(clamp(1.0 - cost, 0.0, 1.0))
+
+
+def dielectric_fresnel(etai, etao, cosi):
+    '''Unpolarized dielectric Fresnel with total internal reflection
+    (argument order of the reference).'''
+    sini = safe_sqrt(1.0 - cosi * cosi)
+    sint = etao / etai * sini
+    no_tir = sint < 1.0
+    cost = safe_sqrt(1.0 - sint * sint)
+    a1, a2 = etai * cosi, etao * cost
+    b1, b2 = etao * cosi, etai * cost
+    para = (a1 - a2) / torch.clamp_min(a1 + a2, 1e-12)
+    perp = (b1 - b2) / torch.clamp_min(b1 + b2, 1e-12)
+    return torch.where(no_tir, 0.5 * (para * para + perp * perp), 1.0)
+
+
+def gtr1(cosh, alpha):
+    '''Berry NDF used for clearcoat (alpha < 1).'''
+    a2 = alpha * alpha
+    t = 1.0 + (a2 - 1.0) * cosh * cosh
+    denom = PI * torch.log(torch.clamp_min(a2, 1e-12)) * t
+    return (a2 - 1.0) / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
+
+
+def gtr2(cosh, alpha):
+    '''GGX NDF.'''
+    a2 = alpha * alpha
+    t = 1.0 + (a2 - 1.0) * cosh * cosh
+    return a2 / (PI * torch.clamp_min(t * t, 1e-12))
+
+
+def smith_ggx(cosi, alpha):
+    '''Smith masking term 1 / (cos + sqrt(a^2 + cos^2 - a^2 cos^2)).'''
+    a = alpha * alpha
+    b = cosi * cosi
+    return 1.0 / torch.clamp_min(cosi + safe_sqrt(a + b - a * b), 1e-12)
+
+
+def sample_gtr1(u, v, alpha):
+    '''Importance-sample the GTR1 lobe, local frame (standard CDF
+    inversion; the reference fixes ptina's misplaced parentheses).'''
+    a2 = torch.clamp_min(alpha * alpha, 1e-12)
+    h = safe_sqrt(torch.clamp_min(1.0 - a2 ** (1.0 - u), 0.0)
+                  / torch.clamp_min(1.0 - a2, 1e-12))
+    return vspherical(h, v)
+
+
+def sample_gtr2(u, v, alpha):
+    '''Importance-sample the GGX lobe, local frame.'''
+    h = safe_sqrt((1.0 - u)
+                  / torch.clamp_min(1.0 - u * (1.0 - alpha * alpha), 1e-12))
+    return vspherical(h, v)

@@ -1,0 +1,150 @@
+'''
+Parity of the PyTorch port's scene build (ptina_tpu_torch.scene /
+scenes) with the JAX reference, field by field.
+
+`jax_scene_arrays` is the shared bridge of the port's tests: it flattens
+a JAX Scene into the numpy dict that ptina_tpu_torch.scene.scene_from_numpy
+takes, so both packages render one scene from the same numbers.
+`scene_to_numpy` flattens the port's Scene into the same dict.
+'''
+
+import numpy as np
+import pytest
+import torch
+
+from ptina_tpu import scenes as jscenes
+from ptina_tpu.intersect.plucker import pack_extract
+from ptina_tpu_torch import scenes as tscenes
+from ptina_tpu_torch.scene import (scene_from_numpy, make_scene,
+                                   MAX_DENSE_FACES)
+
+torch.set_num_threads(2)
+
+ATOL = 1e-6
+
+
+def jax_scene_arrays(s):
+    '''JAX Scene -> the numpy dict of scene_from_numpy.'''
+    h = np.asarray
+    return dict(
+        tri_pos=h(s.tri_pos), tri_nrm=h(s.tri_nrm), tri_uv=h(s.tri_uv),
+        tri_mtl=h(s.tri_mtl), tri_w2b=h(s.tri_w2b), tri_attrs=h(s.tri_attrs),
+        nfaces=h(s.nfaces),
+        mat_fac=h(s.materials.fac), mat_tex=h(s.materials.tex),
+        mat_zero=s.materials.zero, mat_textured=s.materials.textured,
+        light_color=h(s.lights.color), light_pos=h(s.lights.pos),
+        light_axes=h(s.lights.axes), light_size=h(s.lights.size),
+        light_type=h(s.lights.type), light_count=h(s.lights.count),
+        light_kinds=s.lights.kinds,
+        tex_data=h(s.textures.data), tex_nx=h(s.textures.nx),
+        tex_ny=h(s.textures.ny),
+        world_fac=h(s.world_fac), world_tex=h(s.world_tex),
+        cam_v2w=h(s.cam_v2w), cam_w2v=h(s.cam_w2v), accel=s.accel)
+
+
+def scene_to_numpy(s):
+    '''The port's Scene -> the numpy dict of scene_from_numpy.'''
+    def h(x):
+        return x.detach().cpu().numpy()
+    return dict(
+        tri_pos=h(s.tri_pos), tri_nrm=h(s.tri_nrm), tri_uv=h(s.tri_uv),
+        tri_mtl=h(s.tri_mtl), tri_w2b=h(s.tri_w2b), tri_attrs=h(s.tri_attrs),
+        nfaces=h(s.nfaces),
+        mat_fac=h(s.materials.fac), mat_tex=h(s.materials.tex),
+        mat_zero=s.materials.zero, mat_textured=s.materials.textured,
+        light_color=h(s.lights.color), light_pos=h(s.lights.pos),
+        light_axes=h(s.lights.axes), light_size=h(s.lights.size),
+        light_type=h(s.lights.type), light_count=h(s.lights.count),
+        light_kinds=s.lights.kinds,
+        tex_data=h(s.textures.data), tex_nx=h(s.textures.nx),
+        tex_ny=h(s.textures.ny),
+        world_fac=h(s.world_fac), world_tex=h(s.world_tex),
+        cam_v2w=h(s.cam_v2w), cam_w2v=h(s.cam_w2v), accel=s.accel)
+
+
+def assert_same_arrays(ref, got, atol=ATOL):
+    assert set(ref) == set(got)
+    for k, a in ref.items():
+        b = got[k]
+        if isinstance(a, np.ndarray):
+            assert a.shape == np.shape(b), k
+            assert a.dtype == np.asarray(b).dtype, k
+            np.testing.assert_allclose(np.asarray(b, np.float64),
+                                       a.astype(np.float64), rtol=0,
+                                       atol=atol, err_msg=k)
+        else:
+            assert tuple(a) == tuple(b) if isinstance(a, tuple) else a == b, k
+
+
+_TEX = (np.arange(4 * 6 * 3).reshape(4, 6, 3) % 7 / 7.0).astype(np.float32)
+
+SCENES = {
+    'cornell_box': dict(),
+    'cornell_monkey': dict(),
+    'cornell_box_textured': dict(textured_image=_TEX),
+}
+
+
+def _build(pkg, name):
+    kw = SCENES[name]
+    base = 'cornell_box' if name.startswith('cornell_box') else name
+    return getattr(pkg, base)(**kw)
+
+
+@pytest.mark.parametrize('name', sorted(SCENES))
+def test_make_scene_matches_reference(name):
+    '''Every tensor the port builds on its own equals the JAX Scene's.'''
+    ref = jax_scene_arrays(_build(jscenes, name))
+    assert_same_arrays(ref, scene_to_numpy(_build(tscenes, name)))
+
+
+@pytest.mark.parametrize('name', sorted(SCENES))
+def test_scene_from_numpy_round_trips(name):
+    ref = jax_scene_arrays(_build(jscenes, name))
+    scene = scene_from_numpy(ref)
+    assert_same_arrays(ref, scene_to_numpy(scene), atol=0.0)
+    # static structure survives as plain Python attributes
+    assert scene.materials.zero == tuple(ref['mat_zero'])
+    assert scene.lights.kinds == tuple(ref['light_kinds'])
+    assert scene.world_tex_id == int(ref['world_tex'])
+
+
+@pytest.mark.parametrize('name', ['cornell_box', 'cornell_monkey'])
+def test_face_tables_match_reference_coefficients(name):
+    '''The per-face kernel table carries the reference's extraction
+    coefficients (pack_extract: cu, cv, m0.xyz) plus m0.w, and the
+    attribute table is tri_attrs transposed.'''
+    js = _build(jscenes, name)
+    ts = _build(tscenes, name)
+    coef = np.asarray(pack_extract(js.tri_w2b)).T  # [F, 15]
+    got = ts.face_coef.numpy()
+    np.testing.assert_allclose(got[:, :15], coef, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got[:, 15], np.asarray(js.tri_w2b)[:, 0, 3])
+    np.testing.assert_array_equal(ts.face_attr.numpy(),
+                                  np.asarray(js.tri_attrs).T)
+
+
+def test_padding_faces_are_zero():
+    s = tscenes.cornell_box()
+    assert s.tri_w2b.shape[0] == 40 and int(s.nfaces) == 34
+    assert not s.face_coef[34:].any()
+    assert (s.tri_mtl[34:] == -1).all()
+
+
+def test_dense_limit_and_blocked_raise():
+    verts = np.zeros((3 * (MAX_DENSE_FACES + 1), 8), np.float32)
+    with pytest.raises(NotImplementedError, match='blocked'):
+        make_scene(verts)
+    with pytest.raises(NotImplementedError, match='blocked'):
+        make_scene(np.zeros((3, 8), np.float32), accel='blocked')
+    arrays = jax_scene_arrays(jscenes.cornell_box())
+    arrays['accel'] = 'blocked'
+    with pytest.raises(NotImplementedError, match='blocked'):
+        scene_from_numpy(arrays)
+
+
+def test_scene_tensors_stay_on_requested_device():
+    s = tscenes.cornell_box(device='cpu')
+    assert s.device.type == 'cpu'
+    assert s.materials.fac.device.type == 'cpu'
+    assert s.lights.count.dtype == torch.int32
