@@ -13,10 +13,16 @@ and never ptina_tpu, which would drag JAX in.  Importing it needs neither
 nvcc nor a GPU: a kernel library is built and loaded only when a wrapper
 first receives a CUDA tensor.
 
-Ported so far: the wavefront path integrator (engine/path.py) over the
-dense-route scene build, Sobol sampling, Disney shading, lights, and the
-two dense casts (intersect/dense_cast.py: closest hit + attributes, and
-occlusion).
+Ported so far: the path integrator over the dense-route scene build
+(the five megakernel-eligible benchmark scenes: cornell_box,
+cornell_monkey, textured cornell, envlight_scene, matball), Sobol
+sampling, Disney shading, lights and textures, in both routes:
+  * the path megakernel (engine/fused.py, csrc/fused_path.cu): one launch
+    per sample, primary and explicit-uniform heads; render_sample's route
+    for eligible scenes on the card;
+  * the wavefront (engine/path.py) with the two dense casts
+    (intersect/dense_cast.py, csrc/dense_cast.cu: closest hit +
+    attributes, and occlusion).
 '''
 
 __version__ = '0.1.0'

@@ -1,0 +1,409 @@
+// The path megakernel for Hopper (sm_90a): one whole progressive sample,
+// every bounce of every path, in one launch.
+//
+// Replaces ptina_tpu/engine/fused.py::_path_kernel (launched by
+// _fused_call) in its two heads that have callers:
+//   primary  (fused_trace_primary): the kernel makes the camera rays and
+//            the whole Sobol + wang-hash uniform stream itself;
+//   explicit (fused_trace_uniforms): given rays and a [2 + 6 depth, N]
+//            uniform block (MLT replay, the forward of the gradient pair).
+// It computes what path_trace computes (engine/path.py, the plain twin
+// through engine/fused.py:fused_trace_*_plain): per bounce a closest cast
+// with attributes, the material row with texture modulation, the light
+// hit with MIS, the environment on a miss, a light sample with its shadow
+// cast, the Disney eval, and the Disney sample (skipped on the last
+// bounce).  Out: radiance r, g, b [N].
+//
+// What bounds it on this card: the casts.  Every live path meets every
+// face twice per bounce (closest + shadow), ~25 FP32 ops a pair, against
+// a few hundred ops of shading per bounce; at 984 faces that is ~97% of
+// the arithmetic.  The only device-memory traffic is the 12 B written per
+// path (and, in the explicit head, its rays and uniforms read once): the
+// face table (<= 8192 x 136 B), materials, lights and texture atlas are
+// read through the L1/L2 caches, where they stay.
+//
+// What the design does about it: one thread per path, 128-thread blocks,
+// the path's state in registers and the bounce loop inside the thread.
+// The TPU kernel's layout does not survive: no [RG, TR] tiles, no
+// Plücker-as-matmul casts or one-hot winner extraction, no one-hot
+// material switch, no weight-matmul texture fetch, no atan2 polynomial.
+// Faces are read with __ldg: every thread of a warp reads the same face
+// at the same time (one broadcast transaction per float4), and there is
+// no block barrier, so a thread leaves its bounce loop as soon as its
+// path dies (a dead path adds nothing more in the reference either) and
+// its shadow loop at the first occluder.  The BSDF branches on the lobe
+// decision instead of evaluating every lobe (disney.cuh).
+//
+// Numerics: built with --fmad=false, no fast math (utils/cuda_build.py).
+// The uniforms equal sampling/sobol.sample_dims bit for bit: the hash
+// converts with one rounding (__uint2float_rn(h) * 2^-32), as the port's
+// u32_to_unit does, where the TPU kernel's _u32f rounds twice.  The casts
+// follow plucker.cuh's contract, as the wavefront's kernels do.
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "disney.cuh"
+#include "lights.cuh"
+#include "plucker.cuh"
+#include "vec.cuh"
+
+namespace ptina {
+namespace {
+
+constexpr int kBlock = 128;  // paths per block
+constexpr int kMaxDims = 32;  // the primary head's Sobol point
+constexpr unsigned kGold = 0x9e3779b9u;
+constexpr float kTwoPowM32 = static_cast<float>(1.0 / 4294967296.0);
+
+}  // namespace
+}  // namespace ptina
+
+// Launch parameters, passed by value.  The layout is mirrored by the
+// ctypes Structure in engine/fused.py (_Params): keep the two in step.
+struct PtinaPathParams {
+  const float4* coef;        // [F, 16] face coefficients (plucker.pack_faces)
+  const float* attr;         // [F, 18] corner attributes
+  const float* mat_fac;      // [M + 1, 12, 4]; row M = defaults (mtlid -1)
+  const int* mat_tex;        // [M + 1, 12] texture ids (-1 = none)
+  const float* light_pos;    // [L, 3]
+  const float* light_color;  // [L, 3]
+  const float* light_axes;   // [L, 3, 3]
+  const float* light_size;   // [L]
+  const int* light_type;     // [L]
+  const int* light_count;    // []
+  const float* tex_data;     // [T, H, W, 4]
+  const int* tex_nx;         // [T]
+  const int* tex_ny;         // [T]
+  const float* world_fac;    // [4]
+  const float* cam;          // [4, 4] view -> world (primary head)
+  const float* ray_o[3];     // [N] each (explicit head)
+  const float* ray_d[3];
+  const float* uniforms;     // [2 + 6 depth, N] (explicit head)
+  float* out;                // [3, N]
+  int n, f, fid_mask, mat_rows, light_slots, tex_h, tex_w;
+  int use_tex;   // the atlas holds textures (mtllib modulation on)
+  int env_tex;   // equirect environment texture id, -1 = constant
+  int depth;
+  int zero;      // Materials.zero as disney.cuh kZero* bits
+  int kinds;     // bit 0: a point light exists, bit 1: an area light
+  int primary;   // 1: primary head, 0: explicit head
+  int x0, y0, tile_ny;  // primary: tile offset and rows per film column
+  float fnx, fny;       // primary: full film size
+  float pt[ptina::kMaxDims];  // primary: the sample's Sobol point
+};
+
+namespace ptina {
+namespace {
+
+// sampling.wanghash on u32
+__device__ __forceinline__ unsigned wanghash(unsigned x) {
+  x = (x ^ 61u) ^ (x >> 16);
+  x *= 9u;
+  x ^= x >> 4;
+  x *= 0x27d4eb2du;
+  x ^= x >> 15;
+  return x;
+}
+
+// uniform row d of path i: sample_dims' remainder(pt[d] + rotation, 1)
+// in the primary head, the given block in the explicit one
+__device__ __forceinline__ float uniform(const PtinaPathParams& p,
+                                         unsigned pbase, int d, int i) {
+  if (p.primary) {
+    const float rot = __uint2float_rn(wanghash(pbase + d * kGold)) *
+                      kTwoPowM32;
+    const float u = p.pt[d] + rot;
+    return u - floorf(u);
+  }
+  return __ldg(p.uniforms + static_cast<size_t>(d) * p.n + i);
+}
+
+// torch.remainder of integers: the non-negative residue
+__device__ __forceinline__ long long wrap(long long a, long long m) {
+  const long long r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// texture.sample_texture: bilinear, wrap-around, over (s (nx - 1),
+// t (ny - 1)) of texture tid in the padded [T, H, W, 4] atlas
+__device__ __forceinline__ float4 sample_texture(const PtinaPathParams& p,
+                                                 int tid, float s, float t) {
+  const int nx = __ldg(p.tex_nx + tid), ny = __ldg(p.tex_ny + tid);
+  const float px = s * static_cast<float>(nx - 1);
+  const float py = t * static_cast<float>(ny - 1);
+  const float flx = floorf(px), fly = floorf(py);
+  const float fx = px - flx, fy = py - fly;
+  // a non-finite coordinate gives NaN weights (and a NaN texel) as in
+  // torch; the index only has to stay in range
+  const long long ix = fabsf(flx) < 1e18f ? static_cast<long long>(flx) : 0;
+  const long long iy = fabsf(fly) < 1e18f ? static_cast<long long>(fly) : 0;
+  const long long mx = max(nx, 1), my = max(ny, 1);
+  const long long x0 = wrap(ix, mx), x1 = wrap(ix + 1, mx);
+  const long long y0 = wrap(iy, my), y1 = wrap(iy + 1, my);
+  const float4* d = reinterpret_cast<const float4*>(p.tex_data) +
+                    static_cast<long long>(tid) * p.tex_h * p.tex_w;
+  const float4 f00 = __ldg(d + x0 * p.tex_w + y0);
+  const float4 f01 = __ldg(d + x0 * p.tex_w + y1);
+  const float4 f10 = __ldg(d + x1 * p.tex_w + y0);
+  const float4 f11 = __ldg(d + x1 * p.tex_w + y1);
+  const float a = 1.0f - fx, b = 1.0f - fy;
+  float4 r;
+  r.x = f11.x * fx * fy + f10.x * fx * b + f00.x * a * b + f01.x * a * fy;
+  r.y = f11.y * fx * fy + f10.y * fx * b + f00.y * a * b + f01.y * a * fy;
+  r.z = f11.z * fx * fy + f10.z * fx * b + f00.z * a * b + f01.z * a * fy;
+  r.w = f11.w * fx * fy + f10.w * fx * b + f00.w * a * b + f01.w * a * fy;
+  return r;
+}
+
+// mtllib.fetch_material: the material row (mtlid -1 = defaults), texture
+// modulation of its bound parameters, then disney_derive
+__device__ __forceinline__ Material fetch_material(const PtinaPathParams& p,
+                                                   int mtlid, float s,
+                                                   float t) {
+  const int row = mtlid < 0 ? p.mat_rows - 1 : mtlid;
+  const float* fac = p.mat_fac + 48 * row;  // [12, 4]
+  float v[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) v[k] = __ldg(fac + 4 * k);
+  Material m;
+  m.basecolor = v3(v[0], __ldg(fac + 1), __ldg(fac + 2));
+  if (p.use_tex) {
+    const int* tex = p.mat_tex + 12 * row;
+    for (int k = 0; k < 12; ++k) {
+      const int tid = __ldg(tex + k);
+      if (tid < 0) continue;
+      const float4 tv = sample_texture(p, tid, s, t);
+      if (k == 0)
+        m.basecolor = m.basecolor * v3(tv.x, tv.y, tv.z);
+      else
+        v[k] = v[k] * tv.x;
+    }
+  }
+  m.metallic = v[1];
+  m.roughness = v[2];
+  m.specular = v[3];
+  m.specularTint = v[4];
+  m.subsurface = v[5];
+  m.sheen = v[6];
+  m.sheenTint = v[7];
+  m.clearcoat = v[8];
+  m.clearcoatGloss = v[9];
+  m.transmission = v[10];
+  m.ior = v[11];
+  disney_derive(&m);
+  return m;
+}
+
+// lights.world_at: the constant environment, or the equirect texture with
+// the blender swizzle (x, z, -y)
+__device__ __forceinline__ V3 world_at(const PtinaPathParams& p, V3 rd) {
+  const V3 fac = v3(__ldg(p.world_fac), __ldg(p.world_fac + 1),
+                    __ldg(p.world_fac + 2));
+  if (p.env_tex < 0) return fac;
+  const V3 d = vnormalize(v3(rd.x, rd.z, -rd.y));
+  const float s = atan2f(d.z, d.x) / kPi * 0.5f + 0.5f;
+  const float t = atan2f(d.y, safe_sqrt(d.x * d.x + d.z * d.z)) / kPi + 0.5f;
+  const float4 tv = sample_texture(p, p.env_tex, s, t);
+  return v3(tv.x, tv.y, tv.z) * fac;
+}
+
+// engine/path.power_heuristic
+__device__ __forceinline__ float power_heuristic(float a, float b) {
+  a = clampf(a, kEps, kInf);
+  b = clampf(b, kEps, kInf);
+  a = a * a;
+  b = b * b;
+  return a / (a + b);
+}
+
+// closest cast: the packed-key minimum over every face but `avoid`
+__device__ __forceinline__ int closest_key(const Ray& r, const float4* coef,
+                                           int f, int avoid, int fid_mask) {
+  int best = kKeyMiss;
+#pragma unroll 4
+  for (int j = 0; j < f; ++j) {
+    const float4* c = coef + 4 * j;
+    float t;
+    const bool valid = face_hit(r, __ldg(c), __ldg(c + 1), __ldg(c + 2),
+                                __ldg(c + 3), &t);
+    if (valid && j != avoid && t < kInf)
+      best = min(best, pack_key(t, j, fid_mask));
+  }
+  return best;
+}
+
+// shadow cast: a valid hit on a face but `avoid` at t < min(tmax, INF)
+__device__ __forceinline__ bool occluded(const Ray& r, const float4* coef,
+                                         int f, int avoid, float tmax) {
+#pragma unroll 4
+  for (int j = 0; j < f; ++j) {
+    const float4* c = coef + 4 * j;
+    float t;
+    const bool valid = face_hit(r, __ldg(c), __ldg(c + 1), __ldg(c + 2),
+                                __ldg(c + 3), &t);
+    if (valid && j != avoid && t < kInf && t < tmax) return true;
+  }
+  return false;
+}
+
+// camera.camera_rays: unproject the near and far points of NDC (x, y)
+__device__ __forceinline__ V3 unproject(const float* m, float x, float y,
+                                        float z) {
+  const float px = __ldg(m + 0) * x + __ldg(m + 1) * y + __ldg(m + 2) * z +
+                   __ldg(m + 3);
+  const float py = __ldg(m + 4) * x + __ldg(m + 5) * y + __ldg(m + 6) * z +
+                   __ldg(m + 7);
+  const float pz = __ldg(m + 8) * x + __ldg(m + 9) * y + __ldg(m + 10) * z +
+                   __ldg(m + 11);
+  const float pw = __ldg(m + 12) * x + __ldg(m + 13) * y +
+                   __ldg(m + 14) * z + __ldg(m + 15);
+  const float inv = 1.0f / pw;
+  return v3(px * inv, py * inv, pz * inv);
+}
+
+__global__ void __launch_bounds__(kBlock)
+path_kernel(const __grid_constant__ PtinaPathParams p) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= p.n) return;
+
+  V3 ro, rd;
+  unsigned pbase = 0;
+  if (p.primary) {
+    // pixel_grid order: x major over the tile's columns
+    const int ii = p.x0 + i / p.tile_ny;
+    const int jj = p.y0 + i % p.tile_ny;
+    pbase = wanghash(wanghash(static_cast<unsigned>(ii)) +
+                     static_cast<unsigned>(jj));
+    const float x = (static_cast<float>(ii) + uniform(p, pbase, 0, i)) /
+                        p.fnx * 2.0f - 1.0f;
+    const float y = (static_cast<float>(jj) + uniform(p, pbase, 1, i)) /
+                        p.fny * 2.0f - 1.0f;
+    ro = unproject(p.cam, x, y, -1.0f);
+    rd = vnormalize(unproject(p.cam, x, y, 1.0f) - ro);
+  } else {
+    ro = v3(__ldg(p.ray_o[0] + i), __ldg(p.ray_o[1] + i),
+            __ldg(p.ray_o[2] + i));
+    rd = v3(__ldg(p.ray_d[0] + i), __ldg(p.ray_d[1] + i),
+            __ldg(p.ray_d[2] + i));
+  }
+
+  LightPool lp;
+  lp.pos = p.light_pos;
+  lp.color = p.light_color;
+  lp.axes = p.light_axes;
+  lp.size = p.light_size;
+  lp.type = p.light_type;
+  lp.slots = p.light_slots;
+  lp.count = __ldg(p.light_count);
+  lp.has_point = p.kinds & 1;
+  lp.has_area = p.kinds & 2;
+
+  V3 throughput = v3(1.0f, 1.0f, 1.0f);
+  V3 result = v3(0.0f, 0.0f, 0.0f);
+  float last_brdf_pdf = kInf;  // full first-hit emitter weight
+  int avoid = -1;              // self-hit exclusion: the last face hit
+
+  for (int b = 0; b < p.depth; ++b) {
+    const int d0 = 2 + 6 * b;
+    rd = vnormalize(rd);
+
+    // closest hit + attributes (dense_cast.cu::shade_kernel's contract)
+    const Ray ray = make_ray(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z);
+    const int key = closest_key(ray, p.coef, p.f, avoid, p.fid_mask);
+    const bool hit = key != kKeyMiss;
+    float t = kInf;
+    int idx = -1;
+    float at[kChannels] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (hit) {
+      idx = key & p.fid_mask;
+      t = key_decode_t(key, p.fid_mask);
+      float u, v;
+      winner_uv(ray, reinterpret_cast<const float*>(p.coef) + idx * kCoef,
+                &u, &v);
+      const float w0 = 1.0f - u - v;
+      const float* a = p.attr + idx * kAttr;
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c)
+        at[c] = __ldg(a + c) * w0 + __ldg(a + kChannels + c) * u +
+                __ldg(a + 2 * kChannels + c) * v;
+    }
+
+    // direct light hit with MIS against the previous BSDF pdf
+    float ldis, lpdf;
+    V3 lcolor;
+    const bool lhit = lights_hit(lp, ro, rd, &ldis, &lpdf, &lcolor);
+    if (lhit && (!hit || ldis < t))
+      result = result + throughput * lcolor *
+                            power_heuristic(last_brdf_pdf, lpdf);
+
+    // the environment on a miss, and the path ends
+    if (!hit) {
+      result = result + throughput * world_at(p, rd);
+      break;
+    }
+
+    V3 normal = vnormalize(v3(at[0], at[1], at[2]));
+    const V3 hitpos = ro + rd * t;
+    const float sign = -vdot(rd, normal);
+    normal = sign < 0.0f ? -normal : normal;
+    const Material m =
+        fetch_material(p, __float2int_rn(at[5]), at[3], at[4]);
+
+    // next-event estimation: light sample, shadow cast, BSDF eval, MIS
+    float li_dis, li_pdf;
+    V3 li_dir, li_color;
+    lights_sample(lp, hitpos, uniform(p, pbase, d0, i),
+                  uniform(p, pbase, d0 + 1, i), uniform(p, pbase, d0 + 2, i),
+                  &li_dis, &li_dir, &li_pdf, &li_color);
+    if (any3(li_color)) {
+      const Ray sray = make_ray(hitpos.x, hitpos.y, hitpos.z, li_dir.x,
+                                li_dir.y, li_dir.z);
+      if (!occluded(sray, p.coef, p.f, idx, li_dis)) {
+        const V3 brdf = disney_eval(m, p.zero, normal, sign, -rd, li_dir);
+        const float mis2 = power_heuristic(li_pdf, vavg3(brdf));
+        const V3 nee = li_color * brdf * (mis2 * vdot_or_zero(normal, li_dir));
+        result = result + throughput * nee;
+      }
+    }
+
+    // BSDF bounce; its result feeds nothing after the last bounce
+    if (b == p.depth - 1) break;
+    V3 outdir, color;
+    float pdf;
+    disney_sample(m, p.zero, normal, sign, -rd, uniform(p, pbase, d0 + 3, i),
+                  uniform(p, pbase, d0 + 4, i), uniform(p, pbase, d0 + 5, i),
+                  &outdir, &pdf, &color);
+    throughput = throughput * color;
+    ro = hitpos;
+    rd = outdir;
+    avoid = idx;
+    last_brdf_pdf = pdf;
+    if (!any3(throughput) || (rd.x == 0.0f && rd.y == 0.0f && rd.z == 0.0f))
+      break;  // a dead path adds nothing more
+  }
+  p.out[i] = result.x;
+  p.out[p.n + i] = result.y;
+  p.out[2 * p.n + i] = result.z;
+}
+
+}  // namespace
+}  // namespace ptina
+
+extern "C" {
+
+// One megakernel launch over p->n paths on `stream`.  Returns
+// cudaGetLastError() after the launch.
+int ptina_path_trace(const PtinaPathParams* p, void* stream) {
+  const int grid = (p->n + ptina::kBlock - 1) / ptina::kBlock;
+  ptina::path_kernel<<<grid, ptina::kBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof(PtinaPathParams), so the binding can check its mirror.
+int ptina_path_params_size() {
+  return static_cast<int>(sizeof(PtinaPathParams));
+}
+
+}  // extern "C"

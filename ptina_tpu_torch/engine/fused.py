@@ -1,0 +1,266 @@
+'''
+The path megakernel: one whole progressive sample, every bounce of every
+path, in one CUDA launch.
+
+Reference: ptina_tpu/engine/fused.py (`_path_kernel` through
+`_fused_call`).  Two heads of the one kernel (csrc/fused_path.cu,
+sm_90a), each with its plain twin beside it:
+
+  * fused_trace_primary  — the production render: camera rays, lens
+    jitter and the whole Sobol + wang-hash uniform stream are made in the
+    kernel; twin: camera_rays + sample_dims' uniforms + path_trace.
+  * fused_trace_uniforms — given rays and an explicit [2 + 6 depth, N]
+    uniform block (rows 0-1, the lens dims, are not read); the entry of
+    MLT replay and of the gradient pair's forward; twin: path_trace.
+
+Each picks by the scene tensors' device and nothing else: CPU -> the
+plain twin; CUDA -> the kernel, or an exception (an ineligible scene, a
+failed build or a failed launch all raise; nothing falls back to the
+wavefront).  On identical inputs the twin equals the wavefront render bit
+for bit; on the card its casts are the wavefront's CUDA casts.
+
+The reference's explicit-ray head with in-kernel RNG (fused_trace) has
+no caller outside its tests and is not ported; fused_trace_diff comes
+with the gradients.
+
+Eligibility (fused_eligible) is decided from the scene alone, before any
+build.  The port's own limits, from its kernel's resources: the scene is
+on a CUDA device and on the dense route (accel != 'blocked', at most
+MAX_FUSED_FACES = 8192 faces: the packed key's face-id field), and a
+textured environment has its atlas loaded.  The kernel reads every table
+through the L1/L2 caches from device memory, so the reference's VMEM caps
+(MAX_FUSED_TEX_BYTES / MAX_FUSED_TEX_BINDINGS) have no counterpart: any
+atlas, binding, material or light count fits.  The primary head's depth
+is at most 5: its Sobol point has at most sampling/sobol.MAX_DIMS = 32
+dimensions.
+
+Tables: the kernel reads the scene's tensors as they are — the face
+tables face_coef [F, 16] / face_attr [F, 18] built once per scene, the
+material factors [M+1, 12, 4] with their texture ids [M+1, 12] (the
+reference's _pack_materials rows), the light pool's per-slot arrays (the
+fields _pack_lights stacks into [18, L]), the [T, H, W, 4] atlas and its
+extents, the world factor and the camera — so a launch packs nothing and
+reads no value back to the host.  The Sobol point rides in the by-value
+launch parameters (_Params, mirrored by PtinaPathParams).
+
+LAUNCHES counts kernel launches (incremented only where the kernel is
+launched).
+'''
+
+import ctypes
+import functools
+
+import torch
+
+from ptina_tpu_torch.camera import camera_rays
+from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
+from ptina_tpu_torch.intersect.plucker import key_mask_for
+from ptina_tpu_torch.sampling.sobol import pixel_rotation, MAX_DIMS
+from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
+                                              raise_on, stream_ptr)
+from ptina_tpu_torch.utils.vec import V3
+
+__all__ = ['fused_eligible', 'fused_trace_primary', 'fused_trace_uniforms',
+           'fused_trace_primary_plain', 'fused_trace_uniforms_plain',
+           'build_library', 'LAUNCHES', 'MAX_FUSED_FACES']
+
+MAX_FUSED_FACES = MAX_DENSE_FACES
+
+LAUNCHES = {'path': 0}
+
+_SOURCES = ('fused_path.cu', 'vec.cuh', 'disney.cuh', 'lights.cuh',
+            'plucker.cuh')
+
+# Materials.zero names -> the kernel's kZero* bits (csrc/disney.cuh)
+_ZERO_BITS = {'metallic': 1, 'subsurface': 2, 'sheen': 4, 'clearcoat': 8,
+              'transmission': 16}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _Params(ctypes.Structure):
+    '''Mirror of csrc/fused_path.cu's PtinaPathParams.'''
+    _fields_ = (
+        [(k, _P) for k in ('coef', 'attr', 'mat_fac', 'mat_tex', 'light_pos',
+                           'light_color', 'light_axes', 'light_size',
+                           'light_type', 'light_count', 'tex_data', 'tex_nx',
+                           'tex_ny', 'world_fac', 'cam')]
+        + [('ray_o', _P * 3), ('ray_d', _P * 3), ('uniforms', _P),
+           ('out', _P)]
+        + [(k, _I) for k in ('n', 'f', 'fid_mask', 'mat_rows', 'light_slots',
+                             'tex_h', 'tex_w', 'use_tex', 'env_tex', 'depth',
+                             'zero', 'kinds', 'primary', 'x0', 'y0',
+                             'tile_ny')]
+        + [('fnx', _F), ('fny', _F), ('pt', _F * MAX_DIMS)])
+
+
+@functools.lru_cache(maxsize=1)
+def build_library():
+    '''Compile (once per source hash; utils/cuda_build.py) and load the
+    megakernel library.  Returns (ctypes.CDLL, nvcc log text — empty when
+    an existing build was loaded).'''
+    lib, log = build_shared_library('ptina_fused_path', _SOURCES[0],
+                                    _SOURCES)
+    lib.ptina_path_trace.argtypes = [ctypes.POINTER(_Params), _P]
+    lib.ptina_path_trace.restype = _I
+    lib.ptina_path_params_size.restype = _I
+    if lib.ptina_path_params_size() != ctypes.sizeof(_Params):
+        raise RuntimeError('_Params does not mirror PtinaPathParams')
+    return lib, log
+
+
+def _no_atlas(scene):
+    return scene.textures.data.shape[1] == 1 \
+        and scene.textures.data.shape[2] == 1
+
+
+def fused_eligible(scene):
+    '''Can this scene take the megakernel?  From the scene alone.'''
+    return (scene.device.type == 'cuda'
+            and scene.accel != 'blocked'
+            and scene.face_coef.shape[0] <= MAX_FUSED_FACES
+            and not (scene.world_textured and _no_atlas(scene)))
+
+
+def _addr(t, dtype, shape=None):
+    if not t.is_cuda or t.dtype != dtype \
+            or (shape is not None and tuple(t.shape) != shape):
+        raise ValueError(f'kernel operand must be a CUDA {dtype} {shape}, '
+                         f'got {t.device} {t.dtype} {tuple(t.shape)}')
+    return ptr(t).value
+
+
+def _params(scene, n, depth, out):
+    '''The launch parameters every head shares: the scene's tables, the
+    static specialisations and the output.'''
+    if not fused_eligible(scene):
+        raise ValueError('scene is not eligible for the megakernel '
+                         '(fused_eligible): no fallback on a CUDA device')
+    f = scene.face_coef.shape[0]
+    mats, lights, tex = scene.materials, scene.lights, scene.textures
+    m1 = mats.fac.shape[0]
+    n_l = lights.size.shape[0]
+    t_, h_, w_, _ = tex.data.shape
+    use_tex = not _no_atlas(scene)
+    env_tex = scene.world_tex_id if use_tex and scene.world_textured else -1
+    if env_tex >= t_ or any(tid >= t_ for _, _, tid in mats.textured):
+        raise ValueError('a texture id points past the atlas')
+    if scene.face_coef.data_ptr() % 16 or tex.data.data_ptr() % 16:
+        raise ValueError('face and texture tables must be 16-byte aligned')
+    f32, i32 = torch.float32, torch.int32
+    p = _Params()
+    p.coef = _addr(scene.face_coef, f32, (f, 16))
+    p.attr = _addr(scene.face_attr, f32, (f, 18))
+    p.mat_fac = _addr(mats.fac, f32, (m1, 12, 4))
+    p.mat_tex = _addr(mats.tex, i32, (m1, 12))
+    p.light_pos = _addr(lights.pos, f32, (n_l, 3))
+    p.light_color = _addr(lights.color, f32, (n_l, 3))
+    p.light_axes = _addr(lights.axes, f32, (n_l, 3, 3))
+    p.light_size = _addr(lights.size, f32, (n_l,))
+    p.light_type = _addr(lights.type, i32, (n_l,))
+    p.light_count = _addr(lights.count, i32, ())
+    p.tex_data = _addr(tex.data, f32)
+    p.tex_nx = _addr(tex.nx, i32, (t_,))
+    p.tex_ny = _addr(tex.ny, i32, (t_,))
+    p.world_fac = _addr(scene.world_fac, f32, (4,))
+    p.cam = _addr(scene.cam_v2w, f32, (4, 4))
+    p.out = _addr(out, f32, (3, n))
+    p.n, p.f, p.fid_mask = n, f, key_mask_for(f)
+    p.mat_rows, p.light_slots, p.tex_h, p.tex_w = m1, n_l, h_, w_
+    p.use_tex, p.env_tex, p.depth = int(use_tex), env_tex, depth
+    p.zero = sum(_ZERO_BITS[k] for k in mats.zero)
+    p.kinds = int('point' in lights.kinds) | 2 * int('area' in lights.kinds)
+    return p
+
+
+def _launch(p, out):
+    if p.n:
+        lib, _ = build_library()
+        raise_on(lib.ptina_path_trace(ctypes.byref(p), stream_ptr()),
+                 'path_kernel')
+        LAUNCHES['path'] += 1
+    return V3(out[0], out[1], out[2])
+
+
+def _check_device(scene):
+    dev = scene.device
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no megakernel for device {dev}')
+    return dev
+
+
+def fused_trace_primary_plain(scene, pt, nx, ny, x0=0, y0=0, fnx=None,
+                              fny=None):
+    '''Plain twin of the primary head: the (nx, ny) film tile at offset
+    (x0, y0) of an (fnx, fny) film, uniforms remainder(pt + rotation, 1)
+    exactly as sample_dims makes them, then path_trace.'''
+    from ptina_tpu_torch.engine.path import path_trace, pixel_grid
+    fnx = nx if fnx is None else fnx
+    fny = ny if fny is None else fny
+    dev = scene.device
+    pt = torch.as_tensor(pt, dtype=torch.float32).to(dev)
+    ii, jj = pixel_grid(nx, ny, int(x0), int(y0), device=dev)
+    u = torch.remainder(pt[:, None] + pixel_rotation(ii, jj, pt.shape[0]),
+                        1.0)
+    x = (ii.to(torch.float32) + u[0]) / fnx * 2.0 - 1.0
+    y = (jj.to(torch.float32) + u[1]) / fny * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    return path_trace(scene, ro, rd, u)
+
+
+def fused_trace_primary(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
+    '''One whole progressive sample of the (nx, ny) film tile at offset
+    (x0, y0) of an (fnx, fny) film (default: the tile is the film).
+    pt: the sample's [2 + 6 depth] Sobol point (sobol_block), best on the
+    host: on the card it rides in the launch parameters (a CUDA pt is
+    read back first).  Returns radiance V3 of [nx * ny] rows in
+    pixel_grid order.'''
+    if _check_device(scene).type == 'cpu':
+        return fused_trace_primary_plain(scene, pt, nx, ny, x0, y0, fnx, fny)
+    pt = torch.as_tensor(pt, dtype=torch.float32).reshape(-1).cpu()
+    dims = pt.shape[0]
+    if dims > MAX_DIMS or dims < 2 or (dims - 2) % 6:
+        raise ValueError(f'Sobol point of {dims} dims: the primary head '
+                         f'takes 2 + 6 depth <= {MAX_DIMS}')
+    n = nx * ny
+    out = torch.empty((3, n), dtype=torch.float32, device=scene.device)
+    p = _params(scene, n, (dims - 2) // 6, out)
+    p.primary, p.x0, p.y0, p.tile_ny = 1, int(x0), int(y0), ny
+    p.fnx = float(nx if fnx is None else fnx)
+    p.fny = float(ny if fny is None else fny)
+    p.pt[:dims] = pt.tolist()
+    return _launch(p, out)
+
+
+def fused_trace_uniforms_plain(scene, ro, rd, uniforms):
+    '''Plain twin of the explicit-uniform head: path_trace.'''
+    from ptina_tpu_torch.engine.path import path_trace
+    return path_trace(scene, ro, rd, uniforms)
+
+
+def fused_trace_uniforms(scene, ro, rd, uniforms):
+    '''Trace [N] rays through the whole path on an explicit random stream.
+    ro, rd: V3 of [N] float32 rows; uniforms [2 + 6 depth, N] float32 as
+    path_trace consumes them (rows 0-1 are not read).  Returns radiance
+    V3.'''
+    dev = _check_device(scene)
+    if dev.type == 'cpu':
+        return fused_trace_uniforms_plain(scene, ro, rd, uniforms)
+    n = ro.x.shape[0]
+    rows = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
+    if any(r.device != dev or r.dim() != 1 or r.shape[0] != n
+           for r in rows):
+        raise ValueError('rays must be [N] rows on the scene\'s device')
+    dims = uniforms.shape[0]
+    if uniforms.device != dev or uniforms.dim() != 2 \
+            or uniforms.shape[1] != n or dims < 2 or (dims - 2) % 6:
+        raise ValueError('uniforms must be [2 + 6 depth, N] on the scene\'s '
+                         'device')
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    p = _params(scene, n, (dims - 2) // 6, out)
+    p.primary = 0
+    for k in range(3):
+        p.ray_o[k] = _addr(rows[k], torch.float32)
+        p.ray_d[k] = _addr(rows[3 + k], torch.float32)
+    p.uniforms = _addr(uniforms, torch.float32)
+    return _launch(p, out)

@@ -1,6 +1,6 @@
 '''
-Unidirectional path integrator with multiple importance sampling, in its
-wavefront form.
+Unidirectional path integrator with multiple importance sampling: its
+wavefront form, and the per-sample route between it and the megakernel.
 
 Reference: ptina_tpu/engine/path.py (reference ptina/engine/path.py:17-93).
 The whole [N]-ray batch advances bounce by bounce with alive masks.  Per
@@ -15,9 +15,13 @@ Random-number contract: each path consumes a fixed [2 + 6 * depth, N]
 uniform block: 2 lens dims, then per bounce 3 for the light sample and 3
 for the BSDF sample.  No RNG is drawn: the uniforms are rotated Sobol.
 
-Only the wavefront route is ported.  render_sample(fused=True) raises
-until the megakernel lands; fused=None and fused=False take the
-wavefront.  No gradients flow in this slice.
+render_sample routes as the reference does (ptina_tpu/engine/path.py:
+211-223): fused=None takes the path megakernel (engine/fused.py, one
+launch per sample) for the Disney model on a fused_eligible scene (a
+dense-route scene on a CUDA device) and the wavefront otherwise;
+fused=True takes the megakernel (on the CPU its plain twin, which equals
+the wavefront bit for bit); fused=False the wavefront.  No gradients flow
+in this slice.
 '''
 
 import torch
@@ -30,7 +34,8 @@ from ptina_tpu_torch.intersect.dispatch import cast_shadow, cast_shaded
 from ptina_tpu_torch.lights import lights_hit, lights_sample, world_at
 from ptina_tpu_torch.mtllib import fetch_material
 from ptina_tpu_torch.materials.simple import bsdf_eval, bsdf_sample
-from ptina_tpu_torch.sampling.sobol import sample_dims, pixel_rotation
+from ptina_tpu_torch.sampling.sobol import (sample_dims, pixel_rotation,
+                                           sobol_block)
 from ptina_tpu_torch.film import film_add
 
 __all__ = ['MAX_DEPTH', 'PATH_DIMS', 'power_heuristic', 'path_trace',
@@ -145,38 +150,55 @@ def pixel_grid(nx, ny, x0=0, y0=0, device='cpu'):
     return ii.reshape(-1), jj.reshape(-1)
 
 
+def _takes_fused(scene, fused, model):
+    '''The route of render_sample: True for the megakernel.'''
+    from ptina_tpu_torch.engine.fused import fused_eligible
+    if fused is None:
+        return model == 'disney' and fused_eligible(scene)
+    if fused and model != 'disney':
+        raise ValueError('the megakernel evaluates the Disney BSDF only')
+    return bool(fused)
+
+
 def render_sample(scene, film, sample_index, fused=None, model='disney',
                   max_depth=MAX_DEPTH, rot=None):
     '''Accumulate one progressive sample over the whole film into pass 0,
     in place; returns the film.
 
-    fused: None or False = the wavefront (the megakernel is not ported
-    yet: True raises).  rot: optional precomputed pixel_rotation — pass it
-    from per-sample loops.  The reference's tile offsets (x0, y0,
-    full_res) serve its tiled and distributed engines and come with them.'''
-    if fused:
-        raise NotImplementedError(
-            'the path megakernel (reference engine/fused.py) is not ported '
-            'yet; use fused=None or False for the wavefront')
+    fused: None = the megakernel where the scene is eligible, else the
+    wavefront; True = the megakernel; False = the wavefront (module
+    docstring).  rot: optional precomputed pixel_rotation for the
+    wavefront — pass it from per-sample loops.  The reference's tile
+    offsets (x0, y0, full_res) serve its tiled and distributed engines and
+    come with them; the megakernel entry takes them already
+    (fused_trace_primary).'''
     _, _, nx, ny = film.shape
-    ii, jj = pixel_grid(nx, ny, device=film.device)
     dims = 2 + 6 * max_depth
-    u = sample_dims(sample_index, ii, jj, dims, rot=rot)
-    x = (ii.to(torch.float32) + u[0]) / nx * 2.0 - 1.0
-    y = (jj.to(torch.float32) + u[1]) / ny * 2.0 - 1.0
-    ro, rd = camera_rays(scene.cam_v2w, x, y)
-    rad = path_trace(scene, ro, rd, u, model)
+    if _takes_fused(scene, fused, model):
+        from ptina_tpu_torch.engine.fused import fused_trace_primary
+        rad = fused_trace_primary(scene, sobol_block(sample_index, dims),
+                                  nx, ny)
+    else:
+        ii, jj = pixel_grid(nx, ny, device=film.device)
+        u = sample_dims(sample_index, ii, jj, dims, rot=rot)
+        x = (ii.to(torch.float32) + u[0]) / nx * 2.0 - 1.0
+        y = (jj.to(torch.float32) + u[1]) / ny * 2.0 - 1.0
+        ro, rd = camera_rays(scene.cam_v2w, x, y)
+        rad = path_trace(scene, ro, rd, u, model)
     return film_add(film, 0, rad.x, rad.y, rad.z, torch.ones_like(rad.x))
 
 
 def render(scene, film, start_sample, spp=1, model='disney',
            max_depth=MAX_DEPTH):
     '''Render `spp` progressive samples from `start_sample` into the film
-    (in place; returns it).  The per-pixel rotation is sample-invariant
-    and computed once per call.'''
+    (in place; returns it), each through render_sample's automatic route.
+    On the wavefront the per-pixel rotation is sample-invariant and
+    computed once per call.'''
     _, _, nx, ny = film.shape
-    ii, jj = pixel_grid(nx, ny, device=film.device)
-    rot = pixel_rotation(ii, jj, 2 + 6 * max_depth)
+    rot = None
+    if not _takes_fused(scene, None, model):
+        ii, jj = pixel_grid(nx, ny, device=film.device)
+        rot = pixel_rotation(ii, jj, 2 + 6 * max_depth)
     for s in range(spp):
         film = render_sample(scene, film, int(start_sample) + s, model=model,
                              max_depth=max_depth, rot=rot)

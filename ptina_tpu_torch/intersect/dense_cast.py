@@ -13,9 +13,12 @@ ops).  The wrapper picks by the tensors' device and nothing else:
 
 The kernel library is compiled with nvcc at first use on a CUDA tensor,
 from the package's own sources, into build/ptina_tpu_torch/ beside the
-package (the file name carries a hash of the sources and flags, so a
-stale library is never loaded), and bound with ctypes.  Importing this
-module needs neither nvcc nor a GPU.
+package (utils/cuda_build.py: the file name carries a hash of the sources
+and flags, so a stale library is never loaded), and bound with ctypes.
+It is built with --fmad=false, so the kernels round every product and
+sum as the plain versions do and agree with them bit for bit (with FMA
+contraction the decoded t of grazing rays moved by up to 5.8e-4 relative
+on the H100).  Importing this module needs neither nvcc nor a GPU.
 
 LAUNCHES counts kernel launches per wrapper (incremented only where a
 kernel is launched), so a run can show that its main path went through
@@ -24,16 +27,12 @@ the kernels.
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from ptina_tpu_torch.utils.mathutils import INF
+from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
+                                              raise_on, stream_ptr)
 from ptina_tpu_torch.intersect.brute import Hit
 from ptina_tpu_torch.intersect.plucker import (
     KEY_MISS, N_COEF, key_mask_for, ray_features, pair_hits, pair_keys,
@@ -47,60 +46,19 @@ N_ATTR = 18             # 3 corners x (nrm3, uv2, mtlid)
 
 LAUNCHES = {'shade': 0, 'any': 0}
 
-_PKG = Path(__file__).resolve().parents[1]
-_CSRC = _PKG / 'csrc'
 _SOURCES = ('dense_cast.cu', 'plucker.cuh')
-_BUILD_DIR = _PKG.parent / 'build' / 'ptina_tpu_torch'
-# IEEE f32 throughout: no --use_fast_math (the contract's sign, An * B > 0
-# and far-clip tests rely on exact division and denormals), and no FMA
-# contraction (--fmad=false): every product and sum rounds as in the plain
-# torch version, so kernel and plain agree bit for bit.  With contraction
-# the decoded t of grazing rays moved by up to 5.8e-4 relative (H100 run).
-_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
-               '-Xptxas', '-v')
 
 # elements per [N, Fc] temporary of the plain casts (bounds their memory)
 _PLAIN_PAIRS = 1 << 24
 
 
-def _nvcc():
-    cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') \
-        or '/usr/local/cuda'
-    cand = shutil.which('nvcc') or os.path.join(cuda_home, 'bin', 'nvcc')
-    if not os.path.exists(cand):
-        raise RuntimeError('nvcc not found: the CUDA casts are built from '
-                           'csrc/ at first use and need the CUDA toolkit')
-    return cand
-
-
 @functools.lru_cache(maxsize=1)
 def build_library():
-    '''Compile (once per source hash) and load the cast library.  Returns
-    (ctypes.CDLL, nvcc log text — empty when an existing build was
-    loaded).'''
-    h = hashlib.sha256(' '.join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    lib_path = _BUILD_DIR / f'libptina_dense_cast_{h.hexdigest()[:16]}.so'
-    log = ''
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, '-o', tmp,
-                 str(_CSRC / 'dense_cast.cu')],
-                capture_output=True, text=True, check=False)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-            os.replace(tmp, lib_path)  # atomic: concurrent builders agree
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(str(lib_path))
+    '''Compile (once per source hash; utils/cuda_build.py) and load the
+    cast library.  Returns (ctypes.CDLL, nvcc log text — empty when an
+    existing build was loaded).'''
+    lib, log = build_shared_library('ptina_dense_cast', _SOURCES[0],
+                                    _SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ptina_cast_shade.argtypes = [p] * 9 + [i, i, i] + [p] * 7
     lib.ptina_cast_shade.restype = i
@@ -132,21 +90,6 @@ def _check_table(t, cols, dev, name):
     if t.shape[0] > MAX_DENSE_FACES:
         raise ValueError(f'{t.shape[0]} faces exceed the dense casts\' '
                          f'{MAX_DENSE_FACES}')
-
-
-def _ptr(t):
-    if not t.is_contiguous():
-        raise ValueError('kernel operands must be contiguous')
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f'{name} launch failed: cudaError {err}')
 
 
 def _face_chunk(n, f):
@@ -215,11 +158,11 @@ def cast_shade(ro, rd, avoid, coef, attr):
             raise ValueError('coef must be 16-byte aligned')
         lib, _ = build_library()
         err = lib.ptina_cast_shade(
-            _ptr(ro.x), _ptr(ro.y), _ptr(ro.z), _ptr(rd.x), _ptr(rd.y),
-            _ptr(rd.z), _ptr(avoid), _ptr(coef), _ptr(attr), n, f,
-            key_mask_for(f), _ptr(t), _ptr(idx), _ptr(hit), _ptr(u),
-            _ptr(v), _ptr(attrs), _stream())
-        _raise_on(err, 'shade_kernel')
+            ptr(ro.x), ptr(ro.y), ptr(ro.z), ptr(rd.x), ptr(rd.y),
+            ptr(rd.z), ptr(avoid), ptr(coef), ptr(attr), n, f,
+            key_mask_for(f), ptr(t), ptr(idx), ptr(hit), ptr(u),
+            ptr(v), ptr(attrs), stream_ptr())
+        raise_on(err, 'shade_kernel')
         LAUNCHES['shade'] += 1
     return Hit(hit=hit, t=t, index=idx, u=u, v=v), attrs
 
@@ -239,9 +182,9 @@ def cast_any(ro, rd, avoid, tmax, coef):
             raise ValueError('coef must be 16-byte aligned')
         lib, _ = build_library()
         err = lib.ptina_cast_any(
-            _ptr(ro.x), _ptr(ro.y), _ptr(ro.z), _ptr(rd.x), _ptr(rd.y),
-            _ptr(rd.z), _ptr(avoid), _ptr(tmax), _ptr(coef), n,
-            coef.shape[0], _ptr(occ), _stream())
-        _raise_on(err, 'any_kernel')
+            ptr(ro.x), ptr(ro.y), ptr(ro.z), ptr(rd.x), ptr(rd.y),
+            ptr(rd.z), ptr(avoid), ptr(tmax), ptr(coef), n,
+            coef.shape[0], ptr(occ), stream_ptr())
+        raise_on(err, 'any_kernel')
         LAUNCHES['any'] += 1
     return occ

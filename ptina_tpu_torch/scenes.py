@@ -2,17 +2,20 @@
 Procedural benchmark scenes.
 
 Reference: ptina_tpu/scenes.py (numpy geometry builders copied, so the
-port needs no JAX).  Ported: cornell_box (34 triangles) and
-cornell_monkey (978 triangles: a 944-triangle smooth UV sphere stands in
-for Suzanne); the other reference scenes are later work.  The fixed
-benchmark camera is the reference's exams/benchmark.py:18-23 matrix.
+port needs no JAX).  Ported: cornell_box (34 triangles), cornell_monkey
+(978 triangles: a 944-triangle smooth UV sphere stands in for Suzanne),
+envlight_scene and matball (2,216 triangles each: a ground quad and a
+2,214-triangle sphere).  cornell_highpoly needs the blocked route and is
+later work.  The fixed benchmark camera is the reference's
+exams/benchmark.py:18-23 matrix.
 '''
 
 import numpy as np
 
-from ptina_tpu_torch.scene import make_scene, LIGHT_AREA
+from ptina_tpu_torch.scene import make_scene, LIGHT_AREA, LIGHT_POINT
 
-__all__ = ['BENCH_CAMERA', 'cornell_box', 'cornell_monkey']
+__all__ = ['BENCH_CAMERA', 'cornell_box', 'cornell_monkey',
+           'envlight_scene', 'matball']
 
 BENCH_CAMERA = np.array([
     [1.73205081e+00, 0.00000000e+00, 0.00000000e+00, 1.01348227e-02],
@@ -200,3 +203,69 @@ def cornell_monkey(device='cpu', **kw):
     kw.setdefault('world_fac', (0.05, 0.05, 0.05, 1.0))
     return make_scene(verts, mtlids, materials=_materials(), device=device,
                       **kw)
+
+
+def envlight_scene(env_res=(64, 128), device='cpu', **kw):
+    '''Glossy sphere + ground under a procedural equirect sky (world_tex
+    0) with a bright sun blob, plus a small point light, so both MIS
+    strategies carry weight.'''
+    h, w = env_res
+    ty = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    tx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    sky = np.stack([0.3 + 0.4 * ty + 0.0 * tx,
+                    0.45 + 0.3 * ty + 0.0 * tx,
+                    0.7 + 0.25 * ty + 0.0 * tx], axis=-1)
+    sun = np.exp(-(((ty - 0.7) / 0.08) ** 2 + ((tx - 0.25) / 0.05) ** 2))
+    env = (sky + 18.0 * sun[..., None]).astype(np.float32)
+
+    ground = np.asarray(_quad([-6, 0, 6], [6, 0, 6], [6, 0, -6],
+                              [-6, 0, -6]), np.float32)
+    ball = _uv_sphere((0.0, 1.0, 0.0), 1.0, nu=48, nv=24)
+    verts = np.concatenate([
+        _mesh_to_vertices(ground),
+        _mesh_to_vertices(ball,
+                          normals=_sphere_smooth_normals(ball, (0, 1.0, 0))),
+    ])
+    mtlids = np.asarray([0, 0] + [3] * ball.shape[0], np.int32)
+    kw.setdefault('images', [env])
+    kw.setdefault('world_tex', 0)
+    kw.setdefault('world_fac', (1.0, 1.0, 1.0, 1.0))
+    kw.setdefault('lights', [dict(color=(24, 20, 14), pos=(2.0, 3.0, 2.0),
+                                  size=0.4, type=LIGHT_POINT)])
+    return make_scene(verts, mtlids, materials=_materials(), device=device,
+                      **kw)
+
+
+def _sphere_uvs(tris, center):
+    '''Equirect per-corner UVs from sphere directions (seam triangles
+    wrap).'''
+    d = tris - np.asarray(center)[None, None, :]
+    d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+    u = 0.5 + np.arctan2(d[..., 2], d[..., 0]) / (2 * np.pi)
+    v = 0.5 - np.arcsin(np.clip(d[..., 1], -1, 1)) / np.pi
+    return np.stack([u, v], axis=-1).astype(np.float32)
+
+
+def matball(roughness_tex=None, device='cpu', **kw):
+    '''Material-preview ball on a ground plane, lit by the default point
+    light and the environment.  roughness_tex: optional numpy image bound
+    to the ball's roughness (texture 0, spherical UVs).'''
+    ground = np.asarray(_quad([-6, 0, 6], [6, 0, 6], [6, 0, -6],
+                              [-6, 0, -6]), np.float32)
+    ball = _uv_sphere((0.0, 1.0, 0.0), 1.0, nu=48, nv=24)
+    uvs = None
+    images = None
+    mats = _materials()
+    if roughness_tex is not None:
+        images = [roughness_tex]
+        mats[3][2] = (1.0, 0)  # roughness from texture 0
+        uvs = _sphere_uvs(ball, (0.0, 1.0, 0.0))
+    verts = np.concatenate([
+        _mesh_to_vertices(ground),
+        _mesh_to_vertices(ball, normals=_sphere_smooth_normals(
+            ball, (0.0, 1.0, 0.0)), uvs=uvs),
+    ])
+    mtlids = np.asarray([0, 0] + [3] * ball.shape[0], np.int32)
+    kw.setdefault('world_fac', (0.3, 0.3, 0.35, 1.0))
+    kw.setdefault('images', images)
+    return make_scene(verts, mtlids, materials=mats, device=device, **kw)

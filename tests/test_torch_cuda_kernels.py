@@ -1,24 +1,36 @@
 '''
-The port's CUDA cast kernels against their plain torch versions, on the
-card.  Marked `cuda`: each test skips where torch.cuda.is_available() is
-false (the CPU-only test run).  On a machine with the card:
+The port's CUDA kernels against their plain torch versions, on the card.
+Marked `cuda`: each test skips where torch.cuda.is_available() is false
+(the CPU-only test run).  On a machine with the card:
 
-    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
+    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda --noconftest
 
-The kernels are built with --fmad=false, so on identical inputs they
+The cast kernels are built with --fmad=false, so on identical inputs they
 agree with the plain versions bit for bit; the tolerances stated in
 chip_smoke.py (index and occlusion on >= 99.99% of rays) hold with room.
+
+The path megakernel against its plain twin (the wavefront on the same
+uniforms) at 64x64, with tests/test_fused.py's tolerances: cornell and
+cornell_monkey >= 95% of paths within 1e-3 absolute and means within 2e-3
+relative; the textured, environment-lit and matball scenes (and a scene
+with every Disney lobe and both light kinds) >= 95% within 2e-2 relative
+to max(|ref|, 0.05) and means within 1e-2.  Half frames compose the full
+frame bit for bit.
 '''
 
 import numpy as np
 import pytest
 import torch
 
-from ptina_tpu_torch.engine.path import render
+from ptina_tpu_torch.camera import camera_rays
+from ptina_tpu_torch.engine import fused
+from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
 from ptina_tpu_torch.film import new_film
 from ptina_tpu_torch.intersect import dense_cast
-from ptina_tpu_torch.scene import make_scene
-from ptina_tpu_torch.scenes import cornell_box, cornell_monkey
+from ptina_tpu_torch.sampling.sobol import sample_dims, sobol_block
+from ptina_tpu_torch.scene import make_scene, LIGHT_POINT
+from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
+                                    envlight_scene, matball, BENCH_CAMERA)
 from ptina_tpu_torch.utils.vec import V3
 
 pytestmark = pytest.mark.cuda
@@ -82,10 +94,144 @@ def test_kernels_match_plain(dev, name, n):
 
 
 def test_render_launches_kernels(dev):
+    '''The wavefront route launches both casts once per bounce.'''
     scene = cornell_box(device=dev)
     before = dict(dense_cast.LAUNCHES)
-    film = render(scene, new_film(64, 64, device=dev), 0, spp=2)
+    film = new_film(64, 64, device=dev)
+    for s in range(2):
+        render_sample(scene, film, s, fused=False)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(film).all())
     for k in before:
         assert dense_cast.LAUNCHES[k] - before[k] == 5 * 2
+
+
+def _texture():
+    return (np.linspace(0, 1, 64 * 64, dtype=np.float32)
+            .reshape(64, 64, 1) * np.ones((1, 1, 3), np.float32))
+
+
+def _all_lobes_scene(dev):
+    '''Cornell geometry with every Disney lobe switched on somewhere
+    (Materials.zero empty), a textured basecolor, and a point light beside
+    the area light.'''
+    base = cornell_box(textured_image=np.zeros((2, 2, 3), np.float32))
+    verts = np.concatenate([base.tri_pos.numpy().reshape(-1, 3)[:34 * 3],
+                            base.tri_nrm.numpy().reshape(-1, 3)[:34 * 3],
+                            base.tri_uv.numpy().reshape(-1, 2)[:34 * 3]], 1)
+    mtl = base.tri_mtl.numpy()[:34].copy()
+    mtl[22:] = 3
+
+    def m(c, metal, rough, sub, sheen, coat, trans, tex=-1):
+        return [(np.asarray(c, np.float32), tex), (metal, -1), (rough, -1),
+                (0.5, -1), (0.3, -1), (sub, -1), (sheen, -1), (0.5, -1),
+                (coat, -1), (0.7, -1), (trans, -1), (1.5, -1)]
+    mats = [m((0.7, 0.7, 0.6), 0.0, 0.6, 0.5, 0.4, 0.0, 0.0, tex=0),
+            m((0.6, 0.1, 0.1), 0.3, 0.3, 0.0, 0.0, 0.8, 0.0),
+            m((0.1, 0.5, 0.1), 1.0, 0.25, 0.0, 0.3, 0.5, 0.0),
+            m((0.9, 0.9, 0.9), 0.0, 0.1, 0.0, 0.0, 0.0, 0.9)]
+    lights = [dict(color=(12, 12, 12), pos=(0.0, 3.98, 0.0), size=0.8,
+                   type=2, axes=np.asarray([[1, 0, 0], [0, 0, 1],
+                                            [0, -1, 0]], np.float32)),
+              dict(color=(10, 8, 6), pos=(0.5, 3.0, 1.0), size=0.3,
+                   type=LIGHT_POINT)]
+    img = np.random.RandomState(1).rand(8, 8, 3).astype(np.float32)
+    scene = make_scene(verts, mtl, materials=mats, images=[img],
+                       cam_pers=BENCH_CAMERA, lights=lights,
+                       world_fac=(0.2, 0.15, 0.1, 1.0), device=dev)
+    assert scene.materials.zero == ()
+    return scene
+
+
+MEGA = {'cornell': (lambda d: cornell_box(device=d), False),
+        'cornell_monkey': (lambda d: cornell_monkey(device=d), False),
+        'cornell_textured': (lambda d: cornell_box(textured_image=_texture(),
+                                                   device=d), True),
+        'envlight': (lambda d: envlight_scene(device=d), True),
+        'matball': (lambda d: matball(roughness_tex=_texture(), device=d),
+                    True),
+        'all_lobes': (_all_lobes_scene, True)}
+
+
+def _assert_close(k, p, relative):
+    k = torch.stack([k.x, k.y, k.z])
+    p = torch.stack([p.x, p.y, p.z])
+    assert bool(torch.isfinite(k).all())
+    if relative:
+        d = ((k - p).abs() / torch.clamp_min(p.abs(), 0.05)).amax(0)
+        assert (d < 2e-2).float().mean().item() > 0.95
+        assert abs(k.mean().item() - p.mean().item()) \
+            < 1e-2 * max(p.mean().item(), 1e-6)
+    else:
+        d = (k - p).abs().amax(0)
+        assert (d < 1e-3).float().mean().item() > 0.95
+        assert abs(k.mean().item() - p.mean().item()) \
+            < 2e-3 * max(p.mean().item(), 1e-6)
+
+
+@pytest.mark.parametrize('name', sorted(MEGA))
+def test_megakernel_matches_twin(dev, name):
+    make, relative = MEGA[name]
+    scene = make(dev)
+    assert fused.fused_eligible(scene)
+    res = 64
+    for sample in (0, 7):
+        pt = sobol_block(sample, 32)
+        k = fused.fused_trace_primary(scene, pt, res, res)
+        p = fused.fused_trace_primary_plain(scene, pt, res, res)
+        torch.cuda.synchronize()
+        _assert_close(k, p, relative)
+    # the explicit-uniform head on the same rays and uniforms
+    ii, jj = pixel_grid(res, res, device=dev)
+    u = sample_dims(3, ii, jj, 32)
+    x = (ii.to(torch.float32) + u[0]) / res * 2.0 - 1.0
+    y = (jj.to(torch.float32) + u[1]) / res * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    k = fused.fused_trace_uniforms(scene, ro, rd, u)
+    p = fused.fused_trace_uniforms_plain(scene, ro, rd, u)
+    torch.cuda.synchronize()
+    _assert_close(k, p, relative)
+
+
+def test_megakernel_half_frames(dev):
+    scene = matball(roughness_tex=_texture(), device=dev)
+    pt = sobol_block(5, 32)
+    full = fused.fused_trace_primary(scene, pt, 64, 64)
+    top = fused.fused_trace_primary(scene, pt, 32, 64, x0=0, fnx=64, fny=64)
+    bot = fused.fused_trace_primary(scene, pt, 32, 64, x0=32, fnx=64, fny=64)
+    for c in 'xyz':
+        assert torch.equal(getattr(full, c),
+                           torch.cat([getattr(top, c), getattr(bot, c)]))
+
+
+def test_megakernel_ragged_offset_tile(dev):
+    '''A tile whose path count is no multiple of the block, at an offset
+    inside a larger non-square film: the pixel decode and the ragged
+    edge.'''
+    scene = cornell_box(device=dev)
+    pt = sobol_block(2, 32)
+    kw = dict(x0=5, y0=3, fnx=64, fny=48)
+    k = fused.fused_trace_primary(scene, pt, 37, 29, **kw)
+    p = fused.fused_trace_primary_plain(scene, pt, 37, 29, **kw)
+    torch.cuda.synchronize()
+    assert k.x.shape == (37 * 29,)
+    _assert_close(k, p, relative=False)
+
+
+def test_render_launches_megakernel(dev):
+    '''An eligible scene renders through the megakernel: one launch per
+    sample and no cast launches.'''
+    scene = cornell_monkey(device=dev)
+    before = (fused.LAUNCHES['path'], dict(dense_cast.LAUNCHES))
+    film = render(scene, new_film(64, 64, device=dev), 0, spp=3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(film).all()) and bool((film[0, 3] == 3).all())
+    assert fused.LAUNCHES['path'] - before[0] == 3
+    assert dict(dense_cast.LAUNCHES) == before[1]
+
+
+def test_megakernel_raises_for_ineligible_scene(dev):
+    scene = cornell_box(device=dev)
+    scene.accel = 'blocked'
+    with pytest.raises(ValueError, match='eligible'):
+        fused.fused_trace_primary(scene, sobol_block(0, 32), 8, 8)

@@ -29,8 +29,7 @@ from ptina_tpu.engine.path import (render as jrender,
 from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.scene import scene_from_numpy, make_scene
 from ptina_tpu_torch.film import new_film, film_to_image
-from ptina_tpu_torch.engine.path import (render, render_sample,
-                                         power_heuristic)
+from ptina_tpu_torch.engine.path import render, power_heuristic
 from ptina_tpu_torch.intersect import dense_cast
 from ptina_tpu_torch.io.encoding import decode_numpy_array
 
@@ -105,9 +104,3 @@ def test_render_is_deterministic_and_progressive():
     f3 = render(scene, f3, 1, spp=1)
     assert torch.equal(f1, f3)
     assert (f1[0, 3] == 2).all() and not f1[1:].any()
-
-
-def test_megakernel_route_not_ported():
-    scene = tscenes.cornell_box()
-    with pytest.raises(NotImplementedError, match='megakernel'):
-        render_sample(scene, new_film(8, 8), 0, fused=True)

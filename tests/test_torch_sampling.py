@@ -90,3 +90,21 @@ def test_sample_dims_bit_exact(sample_index):
     got2 = tsobol.sample_dims(sample_index, ii, jj, PATH_DIMS, rot=rot)
     np.testing.assert_array_equal(got2.numpy(), ref)
     assert (got >= 0).all() and (got < 1).all()
+
+
+@pytest.mark.parametrize('ndims', [PATH_DIMS, 14])
+def test_sobol_point_equals_sobol(ndims):
+    '''The host numpy point (sobol_point, which sobol_block and the
+    megakernel's launch parameters carry) equals the torch sobol() of the
+    same index bit for bit, and the JAX point too.'''
+    vg = tsobol.sobol_vgrid(ndims)
+    for sample_index in (0, 1, 2, 63, 64, 1000, 2 ** 20 + 5, 2 ** 31 - 100):
+        got = tsobol.sobol_point(sample_index, ndims)
+        assert got.dtype == np.float32 and got.shape == (ndims,)
+        ref = tsobol.sobol(sample_index + tsobol.SKIP, vg).numpy()
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        tsobol.sobol_point(37, ndims),
+        np.asarray(jsobol.sobol_block(37, ndims)))
+    with pytest.raises(ValueError):
+        tsobol.sobol_point(0, 33)

@@ -78,17 +78,20 @@ def assert_same_arrays(ref, got, atol=ATOL):
 
 _TEX = (np.arange(4 * 6 * 3).reshape(4, 6, 3) % 7 / 7.0).astype(np.float32)
 
+# name -> (scene function, keyword arguments)
 SCENES = {
-    'cornell_box': dict(),
-    'cornell_monkey': dict(),
-    'cornell_box_textured': dict(textured_image=_TEX),
+    'cornell_box': ('cornell_box', dict()),
+    'cornell_monkey': ('cornell_monkey', dict()),
+    'cornell_box_textured': ('cornell_box', dict(textured_image=_TEX)),
+    'envlight_scene': ('envlight_scene', dict()),
+    'matball': ('matball', dict()),
+    'matball_textured': ('matball', dict(roughness_tex=_TEX)),
 }
 
 
 def _build(pkg, name):
-    kw = SCENES[name]
-    base = 'cornell_box' if name.startswith('cornell_box') else name
-    return getattr(pkg, base)(**kw)
+    fn, kw = SCENES[name]
+    return getattr(pkg, fn)(**kw)
 
 
 @pytest.mark.parametrize('name', sorted(SCENES))
