@@ -6,42 +6,62 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-The main path has two routes, and the script drives both: the path
-megakernel (one launch per sample, every megakernel-eligible scene) and
-the wavefront (two cast launches per bounce).  Phases (each prints its
-own lines; any failure raises and exits non-zero without the final line):
+The main path has three routes, and the script drives each: the path
+megakernel (one launch per sample, every megakernel-eligible scene), the
+wavefront with the dense casts (two cast launches per bounce), and the
+wavefront with the blocked casts on the big scene (cornell_highpoly,
+101,782 faces); beside them the table-level entry point
+intersect.cast_closest / cast_any.  Phases (each prints its own lines; any
+failure raises and exits non-zero without the final line):
 
   1. device   — require CUDA, print the card's name and power limit,
                 disable TF32.
-  2. build    — compile both kernel libraries (csrc/dense_cast.cu and
-                csrc/fused_path.cu) for sm_90a, two nvcc processes at once;
-                print each kernel's ptxas registers, spills, stack and
-                shared memory.
-  3. kernels  — each CUDA cast against its plain torch version on the
-                card: the cornell (40), cornell_monkey (984) and a random
-                (2,504-face) table, at 262,144 rays and a ragged count.
-                The megakernel against its plain twin (path_trace on the
-                same uniforms) at 512x512, samples 0 and 7, on the five
+  2. build    — compile the three kernel libraries (csrc/dense_cast.cu,
+                csrc/fused_path.cu and csrc/blocked_cast.cu) for sm_90a,
+                three nvcc processes at once; print each kernel's ptxas
+                registers, spills, stack and shared memory.
+  3. kernels  — each dense CUDA cast (shade, any, closest) against its
+                plain torch version on the card: the cornell (40),
+                cornell_monkey (984) and a random (2,504-face) table, at
+                262,144 rays and a ragged count.  The two blocked casts
+                against theirs on cornell_highpoly (101,888 faces in 199
+                blocks) at the same counts, and on its own 512x512
+                camera rays (the first bounce of the main path).  The
+                megakernel against its plain twin (path_trace on the same
+                uniforms) at 512x512, samples 0 and 7, on the five
                 benchmark scenes (cornell, cornell_monkey, textured
                 cornell, envlight, matball), its explicit-uniform head on
                 cornell and matball, and two half frames (x0 = 0, 256)
                 against the full frame, bit for bit.
-  4. main     — with every launch count set to 0: the five scenes at
-                512x512, 32 spp through ptina_tpu_torch.engine.path.render
-                (the automatic route): 32 megakernel launches per scene
-                and no cast launch.  Then, counts at 0 again, cornell and
-                cornell_monkey through render_sample(fused=False): 5 x 32
-                launches of each cast per scene and no megakernel launch.
-  5. golden   — 64x64 renders against tests/golden (cornell 64 spp,
+  4. main     — each route with every launch count set to 0 just before
+                it and read just after: the five scenes at 512x512, 32 spp
+                through ptina_tpu_torch.engine.path.render (the automatic
+                route): 32 megakernel launches per scene and no cast
+                launch; cornell and cornell_monkey through
+                render_sample(fused=False): 5 x 32 launches of each dense
+                cast per scene; cornell_highpoly at 512x512, 8 spp
+                through render (the automatic route takes the blocked
+                wavefront): 5 x 8 launches of each blocked cast and
+                nothing else; the table-level cast_closest / cast_any on
+                cornell_monkey's faces: one launch each.
+  5. capacity — cornell_highpoly(nu=640, nv=240) (305,942 faces, 598
+                blocks): the 32-ray float64 oracle of bench.py:183-214
+                (>= 31 of 32 agree, t within 2e-3 relative), and a
+                256x256 x 2 spp render.
+  6. golden   — 64x64 renders against tests/golden (cornell 64 spp,
                 cornell_monkey 96 spp) under tests/test_parity.py's
-                tolerances, through both routes.
-  6. timings  — each cast kernel and its plain version: device time per
-                call from the profiler, and the per-call time a caller
-                waits (CUDA-event median of 10, launch overhead included).
-                Per scene and route: the megakernel's and its twin's
-                device time per sample, samples/s of 512^2 x 32 spp
-                renders (median of 3), the share of device time in the
-                route's kernels, the device's busy share of the
+                tolerances, through both dense routes; cornell_monkey
+                also built with accel='blocked', through the blocked
+                casts.
+  7. timings  — each cast kernel and its plain version: device time per
+                call (CUDA events around calls queued behind a spinning
+                stream), and the per-call time a caller waits (CUDA-event
+                median, launch overhead included); the
+                blocked casts at 262,144 rays on cornell_highpoly.  Per
+                scene and route: the megakernel's and its twin's device
+                time per sample, samples/s of 512^2 renders (32 spp; 8 on
+                cornell_highpoly; median of 3), the share of device time
+                in the route's kernels, the device's busy share of the
                 unprofiled wall time, and the host-device
                 synchronisations in one sample.
 
@@ -62,17 +82,19 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ptina_tpu_torch import intersect
 from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.engine import fused
 from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
 from ptina_tpu_torch.film import new_film, film_to_image
-from ptina_tpu_torch.intersect import dense_cast
+from ptina_tpu_torch.intersect import blocked, dense_cast
 from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
 from ptina_tpu_torch.scene import make_scene
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
-                                    envlight_scene, matball)
+                                    cornell_highpoly, envlight_scene,
+                                    matball)
 from ptina_tpu_torch.utils.vec import V3
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -81,6 +103,10 @@ RES, SPP, DEPTH = 512, 32, 5
 DIMS = 2 + 6 * DEPTH
 N_FULL = RES * RES
 N_RAGGED = 100_003
+# the big scene: the reference benchmark's highpoly cell is 512^2 x 8 spp
+# (bench.py:232-234); its capacity check 256^2 x 2 spp (bench.py:216)
+HIGHPOLY_SPP = 8
+CAPACITY_RES, CAPACITY_SPP = 256, 2
 # kernel vs plain tolerances (the packed-key t grid is 2^-12 relative;
 # FMA contraction in the kernel moves a verdict only on edge-grazing rays)
 MIN_AGREE = 0.9999
@@ -93,9 +119,18 @@ ATTR_ATOL = 1e-4
 PATH_AGREE = 0.95
 KERNEL_SOURCE = 'ptina_tpu_torch/csrc/dense_cast.cu'
 PATH_SOURCE = 'ptina_tpu_torch/csrc/fused_path.cu'
+BLOCKED_SOURCE = 'ptina_tpu_torch/csrc/blocked_cast.cu'
 REPLACES = {'shade': 'ptina_tpu/intersect/pallas_cast.py:69',
             'any': 'ptina_tpu/intersect/pallas_cast.py:62',
-            'path': 'ptina_tpu/engine/fused.py:648'}
+            'closest': 'ptina_tpu/intersect/pallas_cast.py:51',
+            'path': 'ptina_tpu/engine/fused.py:648',
+            'blocked_shade': 'ptina_tpu/intersect/blocked.py:388',
+            'blocked_any': 'ptina_tpu/intersect/blocked.py:462'}
+# kernel names as nvcc's log gives them, the longer first ('shade_kernel'
+# is inside 'blocked_shade_kernel')
+KERNEL_NAMES = ('blocked_shade_kernel', 'blocked_any_kernel',
+                'closest_kernel', 'shade_kernel', 'any_kernel',
+                'path_kernel')
 
 
 def _bench_texture():
@@ -145,8 +180,7 @@ def _ptxas(log):
     out, name = {}, None
     for line in log.splitlines():
         if 'entry function' in line:
-            name = next((k for k in ('shade_kernel', 'any_kernel',
-                                     'path_kernel') if k in line), None)
+            name = next((k for k in KERNEL_NAMES if k in line), None)
             if name:
                 out[name] = ''
         elif name and ('stack frame' in line or 'registers' in line):
@@ -155,14 +189,15 @@ def _ptxas(log):
 
 
 def phase_build():
-    '''Both libraries, one nvcc each, started together.'''
+    '''The three libraries, one nvcc each, started together.'''
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        jobs = [ex.submit(m.build_library) for m in (dense_cast, fused)]
+    with ThreadPoolExecutor(3) as ex:
+        jobs = [ex.submit(m.build_library)
+                for m in (dense_cast, fused, blocked)]
         logs = [j.result()[1] for j in jobs]
     dt = time.perf_counter() - t0
-    print(f'[build] dense_cast.cu + fused_path.cu -> sm_90a, two nvcc in '
-          f'parallel, {dt:.2f} s')
+    print(f'[build] dense_cast.cu + fused_path.cu + blocked_cast.cu -> '
+          f'sm_90a, three nvcc in parallel, {dt:.2f} s')
     res = {}
     for log in logs:
         if 'error' in log:
@@ -212,50 +247,110 @@ def _rays(rng, scene, n):
     return ro, rd, t(avoid, torch.int32), t(tmax)
 
 
-def _compare(name, scene, ro, rd, avoid, tmax):
-    hk, ak = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
-                                   scene.face_attr)
-    hp, ap = dense_cast.cast_shade_plain(ro, rd, avoid, scene.face_coef,
-                                         scene.face_attr)
-    ok_k = dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef)
-    ok_p = dense_cast.cast_any_plain(ro, rd, avoid, tmax, scene.face_coef)
-    torch.cuda.synchronize()
-    n = ro.x.shape[0]
+def _hold_hits(hk, hp):
+    '''A kernel's Hit against its plain version's: (share of rays whose
+    hit and index agree, t max abs error, t max relative error, u/v max
+    abs error, whether u/v exceed their limit, and the agreeing rays),
+    over the rays whose indices agree.'''
     same = (hk.index == hp.index) & (hk.hit == hp.hit)
-    agree = same.float().mean().item()
     hitm = same & hp.hit
+    if not hitm.any():
+        return same.float().mean().item(), 0.0, 0.0, 0.0, False, same
     t_err = (hk.t - hp.t).abs()[hitm]
-    t_rel = (t_err / hp.t.abs()[hitm]).max().item() if hitm.any() else 0.0
+    t_rel = (t_err / hp.t.abs()[hitm]).max().item()
     uv_err = torch.maximum((hk.u - hp.u).abs(), (hk.v - hp.v).abs())[hitm]
     uv_lim = UV_ATOL + UV_RTOL * torch.maximum(hp.u.abs(), hp.v.abs())[hitm]
+    return (same.float().mean().item(), t_err.max().item(), t_rel,
+            uv_err.max().item(), bool((uv_err > uv_lim).any()), same)
+
+
+def _hold_casts(name, n, shade, occ, closest=None):
+    '''Hold each cast kernel's result against its plain version's:
+    shade = ((Hit, attrs) kernel, (Hit, attrs) plain), occ = (kernel,
+    plain) bits, closest = (kernel Hit, plain Hit) or None.  Prints one
+    line, raises out of tolerance, returns {kernel: {'max_abs_err': the
+    largest absolute error of t, u, v and attrs (of the occlusion bits for
+    'any'), 't_max_rel': t's largest relative error}}.'''
+    (hk, ak), (hp, ap) = shade
+    agree, t_abs, t_rel, uv_err, uv_bad, same = _hold_hits(hk, hp)
     att_err = (ak - ap).abs()[:, same].max().item() if same.any() else 0.0
-    occ_agree = (ok_k == ok_p).float().mean().item()
-    shade_err = max(t_err.max().item() if hitm.any() else 0.0,
-                    uv_err.max().item() if hitm.any() else 0.0, att_err)
-    print(f'[kernels] {name:<16} N={n:>7} hit={hp.hit.float().mean().item():.3f}'
-          f' index agree={agree:.6f} t max rel={t_rel:.2e} uv max '
-          f'abs={uv_err.max().item() if hitm.any() else 0.0:.2e} attrs max '
-          f'abs={att_err:.2e} occ={ok_p.float().mean().item():.3f} occ '
-          f'agree={occ_agree:.6f}')
-    if agree < MIN_AGREE or occ_agree < MIN_AGREE:
-        raise AssertionError(f'{name}: kernel and plain disagree on more '
-                             f'than {1 - MIN_AGREE:.4%} of rays')
-    if t_rel > T_RTOL or att_err > ATTR_ATOL or bool((uv_err > uv_lim).any()):
-        raise AssertionError(f'{name}: kernel t/u/v/attrs out of tolerance')
-    return shade_err, float((ok_k != ok_p).any().item())
+    occ_agree = (occ[0] == occ[1]).float().mean().item()
+    errs = {'shade': {'max_abs_err': max(t_abs, uv_err, att_err),
+                      't_max_rel': t_rel},
+            'any': {'max_abs_err': float((occ[0] != occ[1]).any().item())}}
+    line = (f'[kernels] {name:<16} N={n:>7} hit={hp.hit.float().mean().item():.3f}'
+            f' index agree={agree:.6f} t max rel={t_rel:.2e} uv max '
+            f'abs={uv_err:.2e} attrs max abs={att_err:.2e} '
+            f'occ={occ[1].float().mean().item():.3f} occ agree={occ_agree:.6f}')
+    bad = agree < MIN_AGREE or occ_agree < MIN_AGREE or t_rel > T_RTOL \
+        or att_err > ATTR_ATOL or uv_bad
+    if closest is not None:
+        c_agree, c_abs, c_rel, c_uv, c_bad, _ = _hold_hits(*closest)
+        errs['closest'] = {'max_abs_err': max(c_abs, c_uv),
+                           't_max_rel': c_rel}
+        line += (f'; closest index agree={c_agree:.6f} t max rel='
+                 f'{c_rel:.2e} uv max abs={c_uv:.2e}')
+        bad = bad or c_agree < MIN_AGREE or c_rel > T_RTOL or c_bad
+    print(line)
+    if bad:
+        raise AssertionError(f'{name}: kernel and plain disagree beyond '
+                             f'tolerance')
+    return errs
 
 
-def phase_kernels(tables):
+def _compare(name, scene, ro, rd, avoid, tmax):
+    '''The three dense casts against their plain versions.'''
+    c, at = scene.face_coef, scene.face_attr
+    shade = (dense_cast.cast_shade(ro, rd, avoid, c, at),
+             dense_cast.cast_shade_plain(ro, rd, avoid, c, at))
+    occ = (dense_cast.cast_any(ro, rd, avoid, tmax, c),
+           dense_cast.cast_any_plain(ro, rd, avoid, tmax, c))
+    closest = (dense_cast.cast_closest(ro, rd, avoid, c),
+               dense_cast.cast_closest_plain(ro, rd, avoid, c))
+    torch.cuda.synchronize()
+    return _hold_casts(name, ro.x.shape[0], shade, occ, closest)
+
+
+def _compare_blocked(name, scene, ro, rd, avoid, tmax):
+    '''The two blocked casts against their plain versions.'''
+    tables = (scene.face_coef, scene.face_attr, scene.block_bounds)
+    shade = (blocked.blocked_cast_shade(ro, rd, avoid, *tables),
+             blocked.blocked_cast_shade_plain(ro, rd, avoid, *tables))
+    occ = (blocked.blocked_cast_any(ro, rd, avoid, tmax, tables[0],
+                                    tables[2]),
+           blocked.blocked_cast_any_plain(ro, rd, avoid, tmax, tables[0],
+                                          tables[2]))
+    torch.cuda.synchronize()
+    errs = _hold_casts(name, ro.x.shape[0], shade, occ)
+    return {'blocked_' + k: e for k, e in errs.items()}
+
+
+def _camera_rays_tmax(rng, scene):
+    '''The first bounce's casts on the main path: one pixel-centre camera
+    ray per pixel of the 512^2 film, no avoid, and shadow distances
+    uniform in [0, 10) (the camera rays hit at t 3.9 to 7.8).'''
+    ro, rd, avoid = _camera_batch(scene, RES)
+    tmax = torch.as_tensor(rng.uniform(0.0, 10.0, N_FULL), dtype=torch.float32,
+                           device=DEV)
+    return ro, rd, avoid, tmax
+
+
+def phase_kernels(tables, highpoly):
     rng = np.random.RandomState(20)
-    errs = {'shade': 0.0, 'any': 0.0}
+    errs = {}
     print(f'[kernels] tolerances: index and occlusion equal on >= '
           f'{MIN_AGREE:.2%} of rays; where indices agree t rtol {T_RTOL}, '
           f'u/v rtol {UV_RTOL} atol {UV_ATOL}, attrs atol {ATTR_ATOL}')
-    for name, scene in tables.items():
-        for n in (N_FULL, N_RAGGED):
-            e_sh, e_any = _compare(name, scene, *_rays(rng, scene, n))
-            errs['shade'] = max(errs['shade'], e_sh)
-            errs['any'] = max(errs['any'], e_any)
+    runs = [(_compare, name, scene, _rays(rng, scene, n))
+            for name, scene in tables.items() for n in (N_FULL, N_RAGGED)]
+    runs += [(_compare_blocked, 'cornell_highpoly', highpoly,
+              _rays(rng, highpoly, n)) for n in (N_FULL, N_RAGGED)]
+    runs.append((_compare_blocked, 'highpoly camera', highpoly,
+                 _camera_rays_tmax(rng, highpoly)))
+    for compare, name, scene, rays in runs:
+        for k, e in compare(name, scene, *rays).items():
+            errs[k] = {m: max(errs.get(k, {}).get(m, 0.0), v)
+                       for m, v in e.items()}
     return errs
 
 
@@ -334,14 +429,22 @@ def phase_megakernel(scenes):
 
 # ---------------------------------------------------------------- phase 4
 
+_COUNTS = (dense_cast.LAUNCHES, fused.LAUNCHES, blocked.LAUNCHES)
+
+
 def _zero_counts():
-    for d in (dense_cast.LAUNCHES, fused.LAUNCHES):
+    for d in _COUNTS:
         for k in d:
             d[k] = 0
 
 
 def _counts():
-    return {**dense_cast.LAUNCHES, **fused.LAUNCHES}
+    return {k: v for d in _COUNTS for k, v in d.items()}
+
+
+def _expect(**launches):
+    '''Every launch count 0 but the given ones.'''
+    return {**{k: 0 for k in _counts()}, **launches}
 
 
 def _render_wavefront(scene, film, start, spp):
@@ -354,56 +457,153 @@ def _render_wavefront(scene, film, start, spp):
     return film
 
 
-def _check_image(name, film, spp):
+def _check_image(name, film, spp, res=RES):
     img = film_to_image(film)[..., :3]
-    if img.shape != (RES, RES, 3) or not bool(torch.isfinite(img).all()):
+    if img.shape != (res, res, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f'{name}: image not finite / wrong shape')
     if bool((film[0, 3] != spp).any()):
         raise AssertionError(f'{name}: sample count channel != {spp}')
     return img.mean().item()
 
 
-def phase_main(scenes):
-    '''Both routes of the main path, each with every count at 0 just
-    before it and read just after.  Returns (megakernel route counts,
-    wavefront route counts).'''
+def _drive(route, name, run, spp, want, res=RES):
+    '''One render of one route with the counts read around it; fails
+    unless the launches are exactly `want`.  Returns the launches.'''
+    before = _counts()
+    film = new_film(res, res, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film = run(film)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    grew = {k: v - before[k] for k, v in _counts().items()}
+    print(f'[main] {route} route {name}: {res}x{res} x {spp} spp in '
+          f'{dt:.3f} s (first run), mean '
+          f'{_check_image(name, film, spp, res):.5f}, launches {grew}')
+    if grew != want:
+        raise AssertionError(f'{name}: launches {grew}, expected {want}')
+    return grew
+
+
+def _camera_batch(scene, res):
+    '''One pixel-centre camera ray per pixel of a res^2 film, no avoid.'''
+    ii, jj = pixel_grid(res, res, device=DEV)
+    x = (ii.to(torch.float32) + 0.5) / res * 2.0 - 1.0
+    y = (jj.to(torch.float32) + 0.5) / res * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    return ro, rd, torch.full((res * res,), -1, dtype=torch.int32,
+                              device=DEV)
+
+
+def phase_main(scenes, highpoly):
+    '''Each route of the main path, with every count at 0 just before it
+    and read just after.  Returns {route: counts after it}.'''
+    out = {}
     _zero_counts()
     for name, scene in scenes.items():
-        before = _counts()
-        film = new_film(RES, RES, device=DEV)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = render(scene, film, 0, spp=SPP)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        grew = {k: v - before[k] for k, v in _counts().items()}
-        print(f'[main] megakernel route {name}: {RES}x{RES} x {SPP} spp in '
-              f'{dt:.3f} s (first run), mean '
-              f'{_check_image(name, film, SPP):.5f}, launches {grew}')
-        want = {'path': SPP, 'shade': 0, 'any': 0}
-        if grew != want:
-            raise AssertionError(f'{name}: launches {grew}, expected {want}')
-    mega = _counts()
+        _drive('megakernel', name, lambda f, sc=scene: render(sc, f, 0,
+                                                              spp=SPP),
+               SPP, _expect(path=SPP))
+    out['megakernel'] = _counts()
     _zero_counts()
     for name in WAVEFRONT_SCENES:
-        before = _counts()
-        film = new_film(RES, RES, device=DEV)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        film = _render_wavefront(scenes[name], film, 0, SPP)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        grew = {k: v - before[k] for k, v in _counts().items()}
-        print(f'[main] wavefront route {name}: {RES}x{RES} x {SPP} spp in '
-              f'{dt:.3f} s (first run), mean '
-              f'{_check_image(name, film, SPP):.5f}, launches {grew}')
-        want = {'path': 0, 'shade': DEPTH * SPP, 'any': DEPTH * SPP}
-        if grew != want:
-            raise AssertionError(f'{name}: launches {grew}, expected {want}')
-    return mega, _counts()
+        _drive('wavefront', name,
+               lambda f, sc=scenes[name]: _render_wavefront(sc, f, 0, SPP),
+               SPP, _expect(shade=DEPTH * SPP, any=DEPTH * SPP))
+    out['wavefront'] = _counts()
+    _zero_counts()
+    n = DEPTH * HIGHPOLY_SPP
+    _drive('blocked wavefront', 'cornell_highpoly',
+           lambda f: render(highpoly, f, 0, spp=HIGHPOLY_SPP), HIGHPOLY_SPP,
+           _expect(blocked_shade=n, blocked_any=n))
+    out['blocked'] = _counts()
+    # the table-level entry points on cornell_monkey's faces, packed per
+    # call as in the reference
+    monkey = scenes['cornell_monkey']
+    ro, rd, avoid = _camera_batch(monkey, RES)
+    _zero_counts()
+    hit = intersect.cast_closest(ro, rd, monkey.tri_w2b, avoid)
+    occ = intersect.cast_any(ro, rd, monkey.tri_w2b, avoid,
+                             torch.full_like(ro.x, 3.0))
+    torch.cuda.synchronize()
+    grew = _counts()
+    share = hit.hit.float().mean().item()
+    ok = bool(torch.isfinite(hit.t).all()) and share > 0.9 \
+        and bool(((hit.index >= 0) == hit.hit).all())
+    print(f'[main] table-level cast_closest / cast_any, cornell_monkey '
+          f'faces, {RES}x{RES} camera rays: hit {share:.4f}, occluded '
+          f'before t=3 {occ.float().mean().item():.4f}, launches {grew}')
+    if not ok or grew != _expect(closest=1, any=1):
+        raise AssertionError(f'table-level casts: hit share {share}, '
+                             f'launches {grew}')
+    out['table'] = grew
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
+
+def _oracle_agreement(scene, n=32):
+    '''bench.py:183-214: the blocked kernel's t for n rays from inside the
+    box against a float64 Moller-Trumbore over the live faces; a miss
+    agrees with t >= 1e6.'''
+    rng = np.random.default_rng(0)
+    ron = (rng.uniform(-1.5, 1.5, (n, 3)) + [0, 1.5, 0]).astype(np.float32)
+    dn = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    dn /= np.linalg.norm(dn, axis=1, keepdims=True)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=DEV)
+    hit, _ = blocked.blocked_cast_shade(
+        V3(t(ron[:, 0]), t(ron[:, 1]), t(ron[:, 2])),
+        V3(t(dn[:, 0]), t(dn[:, 1]), t(dn[:, 2])),
+        torch.full((n,), -1, dtype=torch.int32, device=DEV),
+        scene.face_coef, scene.face_attr, scene.block_bounds)
+    got_t = hit.t.cpu().numpy()
+    tp = scene.tri_pos[:int(scene.nfaces)].cpu().numpy().astype(np.float64)
+    v0, e1, e2 = tp[:, 0], tp[:, 1] - tp[:, 0], tp[:, 2] - tp[:, 0]
+    agree = 0
+    for r in range(n):
+        o, d = ron[r].astype(np.float64), dn[r].astype(np.float64)
+        p = np.cross(d, e2)
+        det = np.einsum('fc,fc->f', e1, p)
+        ok = np.abs(det) > 1e-300
+        inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+        tv = o - v0
+        u = np.einsum('fc,fc->f', tv, p) * inv
+        q = np.cross(tv, e1)
+        v = np.einsum('c,fc->f', d, q) * inv
+        tt = np.einsum('fc,fc->f', e2, q) * inv
+        tt = np.where(ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (tt > 0),
+                      tt, np.inf)
+        t64 = tt.min()
+        if np.isfinite(t64):
+            agree += abs(got_t[r] - t64) < 2e-3 * t64
+        else:
+            agree += got_t[r] >= 1e6
+    return int(agree)
+
+
+def phase_capacity():
+    '''The reference benchmark's capacity check (bench.py:173-216): a
+    ~306k-face scene, its float64 oracle and a small render.'''
+    t0 = time.perf_counter()
+    scene = cornell_highpoly(nu=640, nv=240, device=DEV)
+    f, nb = scene.face_coef.shape[0], scene.block_bounds.shape[0]
+    print(f'[capacity] cornell_highpoly(nu=640, nv=240): {int(scene.nfaces)} '
+          f'faces, {f} padded, {nb} blocks, built in '
+          f'{time.perf_counter() - t0:.2f} s')
+    agree = _oracle_agreement(scene)
+    print(f'[capacity] 32 rays against the float64 oracle: {agree}/32 agree '
+          f'(t within 2e-3 relative; >= 31)')
+    if agree < 31:
+        raise AssertionError(f'capacity oracle: {agree}/32')
+    _zero_counts()
+    n = DEPTH * CAPACITY_SPP
+    _drive('blocked wavefront', 'cornell_highpoly 640x240',
+           lambda fl: render(scene, fl, 0, spp=CAPACITY_SPP), CAPACITY_SPP,
+           _expect(blocked_shade=n, blocked_any=n), res=CAPACITY_RES)
+
+# ---------------------------------------------------------------- phase 6
 
 def _blur(img, k=2):
     h, w, c = img.shape
@@ -412,31 +612,47 @@ def _blur(img, k=2):
 
 
 def phase_golden(scenes):
+    '''The stored goldens through every route that can render them: the
+    megakernel and the dense wavefront, and for cornell_monkey the blocked
+    casts (the scene rebuilt with accel='blocked': Morton order, 2 blocks;
+    the only stored image the blocked route can be held to).'''
     # tests/test_parity.py: (spp, mean tolerance, patch tolerance)
     cases = {'cornell': (64, 0.015, 0.05), 'cornell_monkey': (96, 0.015, 0.06)}
-    routes = {'megakernel': lambda sc, f, n: render(sc, f, 0, spp=n),
-              'wavefront': lambda sc, f, n: _render_wavefront(sc, f, 0, n)}
-    for name, (spp, mean_tol, patch_tol) in cases.items():
+    dense = lambda sc, f, n: _render_wavefront(sc, f, 0, n)
+    auto = lambda sc, f, n: render(sc, f, 0, spp=n)
+    monkey_blocked = cornell_monkey(device=DEV, accel='blocked')
+    # (scene, route, run, the launch count the route must raise)
+    runs = [(name, route, run, key) for name in cases
+            for route, run, key in (('megakernel', auto, 'path'),
+                                    ('wavefront', dense, 'shade'))]
+    runs.append(('cornell_monkey', 'blocked wavefront', auto,
+                  'blocked_shade'))
+    for name, route, run, key in runs:
+        spp, mean_tol, patch_tol = cases[name]
         with open(os.path.join(ROOT, 'tests', 'golden',
                                f'{name}_64x64_512spp.txt')) as fh:
             gold = decode_numpy_array(fh.read())
-        for route, run in routes.items():
-            before = fused.LAUNCHES['path']
-            film = run(scenes[name], new_film(64, 64, device=DEV), spp)
-            if (fused.LAUNCHES['path'] > before) != (route == 'megakernel'):
-                raise AssertionError(f'{name}: {route} took the wrong route')
-            img = film_to_image(film)[..., :3].cpu().numpy()
-            mean_err = abs(img.mean() - gold.mean()) / gold.mean()
-            patch = (np.abs(_blur(img) - _blur(gold))
-                     / (_blur(gold) + 0.05)).mean()
-            print(f'[golden] {name} 64x64 {spp} spp, {route}: mean err '
-                  f'{mean_err:.5f} (< {mean_tol}), patch err {patch:.5f} '
-                  f'(< {patch_tol})')
-            if not (mean_err < mean_tol and patch < patch_tol):
-                raise AssertionError(f'{name} ({route}): golden mismatch')
+        scene = monkey_blocked if route == 'blocked wavefront' \
+            else scenes[name]
+        before = _counts()
+        film = run(scene, new_film(64, 64, device=DEV), spp)
+        grew = {k for k, v in _counts().items() if v > before[k]}
+        if key not in grew or grew & {'path', 'shade', 'blocked_shade'} \
+                != {key}:
+            raise AssertionError(f'{name}: {route} took the wrong route '
+                                 f'({sorted(grew)})')
+        img = film_to_image(film)[..., :3].cpu().numpy()
+        mean_err = abs(img.mean() - gold.mean()) / gold.mean()
+        patch = (np.abs(_blur(img) - _blur(gold))
+                 / (_blur(gold) + 0.05)).mean()
+        print(f'[golden] {name} 64x64 {spp} spp, {route}: mean err '
+              f'{mean_err:.5f} (< {mean_tol}), patch err {patch:.5f} '
+              f'(< {patch_tol})')
+        if not (mean_err < mean_tol and patch < patch_tol):
+            raise AssertionError(f'{name} ({route}): golden mismatch')
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 
 def _event_ms(fn, reps=10, warm=3):
     """Median of `reps` single calls timed with CUDA events: the time a
@@ -463,18 +679,46 @@ def _dev_us(evt):
     return 0.0
 
 
-def _device_ms(fn, reps=10):
-    """Device time per call from the profiler: the summed device time of
-    every kernel the call launched, over `reps` calls (launch overhead
-    excluded)."""
+def _profile(work, complete, tries=3):
+    '''key_averages() of a CUDA-only profiler trace of work().  The trace
+    can come back short or empty (PERF.md; a full run once read 0 ms of
+    device time for ten dense cast launches), so it is taken again, up to
+    `tries` times, until complete(key_averages) holds; the last one is
+    returned either way.'''
     from torch.profiler import profile, ProfilerActivity
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        if complete(ka):
+            break
+    return ka
+
+
+def _device_ms(fn, reps=10):
+    """Device time per call: `reps` calls queued behind a spinning stream
+    and timed with CUDA events (_queued_us).  For the casts and their
+    plain versions, which never synchronise and keep the device busier
+    than the host, so no host gap enters the window."""
+    return _queued_us(lambda: [fn() for _ in range(reps)]) / 1e3 / reps
+
+
+def _profiled_ms(fn, reps=3):
+    """Device time per call from the profiler: the summed device time of
+    every kernel `reps` calls launched, host gaps excluded.  For host-bound
+    work (the megakernel's wavefront twin), which _device_ms would time
+    with its gaps; and that is the fallback, printed as such, when every
+    trace comes back empty."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_dev_us(e) for e in prof.key_averages()) / 1e3 / reps
+    ka = _profile(lambda: [fn() for _ in range(reps)],
+                  lambda k: sum(_dev_us(e) for e in k) > 0)
+    us = sum(_dev_us(e) for e in ka)
+    if us > 0:
+        return us / 1e3 / reps
+    print('[timing] NOTE the profiler trace came back empty 3 times; '
+          'timed with CUDA events instead (host gaps included)')
+    return _device_ms(fn, reps)
 
 
 def _queued_us(work):
@@ -501,43 +745,66 @@ def _queued_us(work):
     return a.elapsed_time(b) * 1e3
 
 
-def _kernel_times(scene, rays):
-    """{kernel: (device ms, plain device ms, call ms, plain call ms)};
-    the per-call timings run plain, kernel, kernel, plain."""
-    ro, rd, avoid, tmax = rays
-    c, at = scene.face_coef, scene.face_attr
-    calls = {
-        'shade': (lambda: dense_cast.cast_shade(ro, rd, avoid, c, at),
-                  lambda: dense_cast.cast_shade_plain(ro, rd, avoid, c, at)),
-        'any': (lambda: dense_cast.cast_any(ro, rd, avoid, tmax, c),
-                lambda: dense_cast.cast_any_plain(ro, rd, avoid, tmax, c)),
-    }
+def _time_calls(calls, plain_reps=10):
+    """{kernel: (device ms, plain device ms, call ms, plain call ms)} for
+    calls = {kernel: (kernel call, plain call)}; the per-call timings run
+    plain, kernel, kernel, plain.  plain_reps bounds the plain version's
+    repetitions (the blocked plain casts take seconds a call)."""
     out = {}
+    pw = min(3, plain_reps)
     for k, (kern, plain) in calls.items():
-        p1, k1, k2, p2 = (_event_ms(plain), _event_ms(kern), _event_ms(kern),
-                          _event_ms(plain))
-        out[k] = (_device_ms(kern), _device_ms(plain),
+        p1, k1, k2, p2 = (_event_ms(plain, plain_reps, pw), _event_ms(kern),
+                          _event_ms(kern), _event_ms(plain, plain_reps, pw))
+        out[k] = (_device_ms(kern), _device_ms(plain, plain_reps),
                   statistics.median([k1, k2]), statistics.median([p1, p2]))
     return out
 
 
-def _profile_share(scene, use_fused):
+def _kernel_times(scene, rays):
+    ro, rd, avoid, tmax = rays
+    c, at = scene.face_coef, scene.face_attr
+    return _time_calls({
+        'shade': (lambda: dense_cast.cast_shade(ro, rd, avoid, c, at),
+                  lambda: dense_cast.cast_shade_plain(ro, rd, avoid, c, at)),
+        'any': (lambda: dense_cast.cast_any(ro, rd, avoid, tmax, c),
+                lambda: dense_cast.cast_any_plain(ro, rd, avoid, tmax, c)),
+        'closest': (lambda: dense_cast.cast_closest(ro, rd, avoid, c),
+                    lambda: dense_cast.cast_closest_plain(ro, rd, avoid, c)),
+    })
+
+
+def _blocked_times(scene, rays):
+    ro, rd, avoid, tmax = rays
+    c, at, bb = scene.face_coef, scene.face_attr, scene.block_bounds
+    return _time_calls({
+        'blocked_shade': (
+            lambda: blocked.blocked_cast_shade(ro, rd, avoid, c, at, bb),
+            lambda: blocked.blocked_cast_shade_plain(ro, rd, avoid, c, at,
+                                                     bb)),
+        'blocked_any': (
+            lambda: blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb),
+            lambda: blocked.blocked_cast_any_plain(ro, rd, avoid, tmax, c,
+                                                   bb)),
+    }, plain_reps=1)
+
+
+def _profile_share(scene, use_fused, names=None):
     '''On one route (render_sample's fused flag), over two 512^2 samples:
     the device time of the route's kernels as a share of all device time
     (profiler, CUDA activity only), with the route launches the trace
     holds against the launches made; the device time of the two samples
     over their wall time without the profiler (median of 3 windows), the
     busy share, where the device time is the profiler's on the wavefront
-    (hundreds of launches, too many for _queued_us; the trace rarely loses
-    one of its cast launches) and _queued_us's on the megakernel route
-    (three launches a sample, whose megakernel launches the trace does
-    lose); and the number of host-device synchronisations in one sample
-    (sync debug mode).'''
-    from torch.profiler import profile, ProfilerActivity
+    (hundreds of launches, too many for _queued_us; the trace is taken
+    again, up to 3 times, while it lacks route launches) and _queued_us's
+    on the megakernel route (three launches a sample, whose megakernel
+    launches the trace does lose); and the number of host-device
+    synchronisations in one sample (sync debug mode).'''
     film = new_film(RES, RES, device=DEV)
     ii, jj = pixel_grid(RES, RES, device=DEV)
     rot = pixel_rotation(ii, jj, DIMS)
-    names = ('path_kernel',) if use_fused else ('shade_kernel', 'any_kernel')
+    names = names or (('path_kernel',) if use_fused
+                      else ('shade_kernel', 'any_kernel'))
 
     def samples():
         for s in (1, 2):
@@ -547,20 +814,21 @@ def _profile_share(scene, use_fused):
         samples()
         torch.cuda.synchronize()
 
+    before = sum(_counts().values())
     two_samples()
+    launched = sum(_counts().values()) - before
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
         two_samples()
         walls.append(time.perf_counter() - t0)
-    before = sum(_counts().values())
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        two_samples()
-    launched = sum(_counts().values()) - before
-    ka = prof.key_averages()
+
+    def route_launches(ka):
+        return sum(e.count for e in ka if any(n in e.key for n in names))
+    ka = _profile(samples, lambda k: route_launches(k) == launched)
     traced = sum(_dev_us(e) for e in ka)
     kern = sum(_dev_us(e) for e in ka if any(n in e.key for n in names))
-    recorded = sum(e.count for e in ka if any(n in e.key for n in names))
+    recorded = route_launches(ka)
     busy = _queued_us(samples) if use_fused else traced
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
@@ -581,7 +849,7 @@ def _path_times(scene):
     '''(megakernel device ms per sample, twin device ms per sample,
     megakernel per-call ms with launch) at 512^2, sample 9: the kernel's
     by CUDA events over 10 launches behind a spinning stream (_queued_us),
-    the twin's from the profiler over 3 calls.'''
+    the twin's from the profiler over 3 calls (_profiled_ms).'''
     pt = sobol_block(9, DIMS)
 
     def kern():
@@ -594,11 +862,11 @@ def _path_times(scene):
     def twin():
         return fused.fused_trace_primary_plain(scene, pt, RES, RES)
     kern()
-    return _queued_us(kern10) / 1e4, _device_ms(twin, reps=3), _event_ms(kern)
+    return _queued_us(kern10) / 1e4, _profiled_ms(twin), _event_ms(kern)
 
 
-def _sps(run):
-    '''Median wall time of 3 renders of 512^2 x SPP, and samples/s.'''
+def _sps(run, spp=SPP):
+    '''Median wall time of 3 renders of 512^2 x spp, and samples/s.'''
     runs = []
     for _ in range(3):
         film = new_film(RES, RES, device=DEV)
@@ -608,20 +876,50 @@ def _sps(run):
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
     dt = statistics.median(runs)
-    return dt, SPP / dt
+    return dt, spp / dt
 
 
-def phase_timings(card, scenes, tables):
+def _print_route(card, name, route, scene, spp, run, use_fused, names=None):
+    '''samples/s, busy share and synchronisations of one scene's route.'''
+    dt, sps = _sps(run, spp)
+    print(f'[timing] {card} | render {name} {route} {RES}x{RES} x '
+          f'{spp} spp: median {dt:.4f} s of 3 -> {sps:.3f} '
+          f'samples/s ({1e3 * dt / spp:.3f} ms/sample)')
+    r = _profile_share(scene, use_fused, names)
+    print(f'[timing] {card} | {name} {route} 2 samples: device '
+          f'{r["busy"] / 1e3:.3f} ms '
+          f'({"events" if use_fused else "profiler"}), busy '
+          f'{r["busy"] / r["wall"]:.1%} of {r["wall"] / 1e3:.3f} ms '
+          f'unprofiled wall (median of 3); profiler trace: route '
+          f'kernels {r["kern"] / 1e3:.3f} ms of '
+          f'{r["traced"] / 1e3:.3f} ms, {r["recorded"]} of '
+          f'{r["launched"]} route launches'
+          + ('' if r['recorded'] == r['launched']
+             else ' -- TRACE INCOMPLETE'))
+    print(f'[timing] {name} {route}: {len(r["syncs"])} host-device '
+          f'synchronisations in one sample'
+          + (f'; first: {r["syncs"][0]}' if r['syncs'] else ''))
+
+
+def _print_kernel_times(card, name, n, times):
+    for k, (ms, plain, call, pcall) in times.items():
+        print(f'[timing] {card} | {k:<13} kernel {name} {n} rays: '
+              f'device {ms:.4f} ms, plain torch {plain:.4f} ms '
+              f'(x{plain / ms:.1f}); per call with launch {call:.4f} '
+              f'ms, plain {pcall:.4f} ms')
+
+
+def phase_timings(card, scenes, tables, highpoly):
     rng = np.random.RandomState(7)
     kt = {}
     for name in ('cornell', 'cornell_monkey'):
-        rays = _rays(rng, tables[name], N_FULL)
-        kt[name] = _kernel_times(tables[name], rays)
-        for k, (ms, plain, call, pcall) in kt[name].items():
-            print(f'[timing] {card} | {k:<5} kernel {name} {N_FULL} rays: '
-                  f'device {ms:.4f} ms, plain torch {plain:.4f} ms '
-                  f'(x{plain / ms:.1f}); per call with launch {call:.4f} '
-                  f'ms, plain {pcall:.4f} ms')
+        kt[name] = _kernel_times(tables[name],
+                                 _rays(rng, tables[name], N_FULL))
+        _print_kernel_times(card, name, N_FULL, kt[name])
+    kt['cornell_highpoly'] = _blocked_times(highpoly,
+                                            _rays(rng, highpoly, N_FULL))
+    _print_kernel_times(card, 'cornell_highpoly', N_FULL,
+                        kt['cornell_highpoly'])
     pk = {}
     for name, scene in scenes.items():
         pk[name] = _path_times(scene)
@@ -631,29 +929,15 @@ def phase_timings(card, scenes, tables):
               f'CUDA casts) {plain:.4f} ms/sample (x{plain / ms:.1f}); per '
               f'call with launch {call:.4f} ms')
     for name, scene in scenes.items():
-        routes = {'megakernel': (True, lambda f: render(scene, f, 0,
-                                                        spp=SPP))}
-        routes['wavefront'] = (False, lambda f: _render_wavefront(
-            scene, f, 0, SPP))
-        for route, (use_fused, run) in routes.items():
-            dt, sps = _sps(run)
-            print(f'[timing] {card} | render {name} {route} {RES}x{RES} x '
-                  f'{SPP} spp: median {dt:.4f} s of 3 -> {sps:.3f} '
-                  f'samples/s ({1e3 * dt / SPP:.3f} ms/sample)')
-            r = _profile_share(scene, use_fused)
-            print(f'[timing] {card} | {name} {route} 2 samples: device '
-                  f'{r["busy"] / 1e3:.3f} ms '
-                  f'({"events" if use_fused else "profiler"}), busy '
-                  f'{r["busy"] / r["wall"]:.1%} of {r["wall"] / 1e3:.3f} ms '
-                  f'unprofiled wall (median of 3); profiler trace: route '
-                  f'kernels {r["kern"] / 1e3:.3f} ms of '
-                  f'{r["traced"] / 1e3:.3f} ms, {r["recorded"]} of '
-                  f'{r["launched"]} route launches'
-                  + ('' if r['recorded'] == r['launched']
-                     else ' -- TRACE INCOMPLETE'))
-            print(f'[timing] {name} {route}: {len(r["syncs"])} host-device '
-                  f'synchronisations in one sample'
-                  + (f'; first: {r["syncs"][0]}' if r['syncs'] else ''))
+        _print_route(card, name, 'megakernel', scene, SPP,
+                     lambda f, sc=scene: render(sc, f, 0, spp=SPP), True)
+        _print_route(card, name, 'wavefront', scene, SPP,
+                     lambda f, sc=scene: _render_wavefront(sc, f, 0, SPP),
+                     False)
+    _print_route(card, 'cornell_highpoly', 'blocked wavefront', highpoly,
+                 HIGHPOLY_SPP,
+                 lambda f: render(highpoly, f, 0, spp=HIGHPOLY_SPP), False,
+                 ('blocked_shade_kernel', 'blocked_any_kernel'))
     return kt, pk
 
 
@@ -663,30 +947,46 @@ def main():
     scenes = {name: make() for name, (make, _) in SCENES.items()}
     tables = {k: scenes[k] for k in WAVEFRONT_SCENES}
     tables['random_2504'] = _random_table(np.random.RandomState(3), 2500)
-    errs = phase_kernels(tables)
-    errs['path'] = phase_megakernel(scenes)
+    t0 = time.perf_counter()
+    highpoly = cornell_highpoly(device=DEV)
+    print(f'[scene] cornell_highpoly: {int(highpoly.nfaces)} faces, '
+          f'{highpoly.face_coef.shape[0]} padded, '
+          f'{highpoly.block_bounds.shape[0]} blocks, built in '
+          f'{time.perf_counter() - t0:.2f} s')
+    errs = phase_kernels(tables, highpoly)
+    errs['path'] = {'max_abs_err': phase_megakernel(scenes)}
 
-    mega, wave = phase_main(scenes)
+    counts = phase_main(scenes, highpoly)
+    phase_capacity()
     phase_golden(scenes)
-    kt, pk = phase_timings(card, scenes, tables)
+    kt, pk = phase_timings(card, scenes, tables, highpoly)
 
-    kernels = [{'name': f'{k}_kernel', 'route': 'cuda',
-                'source': KERNEL_SOURCE, 'replaces': REPLACES[k],
-                'launches': wave[k], 'max_abs_err': errs[k],
-                'ms': kt['cornell'][k][0], 'plain_ms': kt['cornell'][k][1],
-                'call_ms': kt['cornell'][k][2],
-                'ms_monkey': kt['cornell_monkey'][k][0],
-                'plain_ms_monkey': kt['cornell_monkey'][k][1],
-                'call_ms_monkey': kt['cornell_monkey'][k][2]}
+    def entry(k, source, launches, times, **extra):
+        return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
+                'replaces': REPLACES[k], 'launches': launches,
+                **errs[k], 'ms': times[k][0],
+                'plain_ms': times[k][1], 'call_ms': times[k][2],
+                'ptxas': ptxas.get(f'{k}_kernel', ''), **extra}
+    kernels = [entry(k, KERNEL_SOURCE, counts['wavefront'][k], kt['cornell'],
+                     ms_monkey=kt['cornell_monkey'][k][0],
+                     plain_ms_monkey=kt['cornell_monkey'][k][1],
+                     call_ms_monkey=kt['cornell_monkey'][k][2])
                for k in ('shade', 'any')]
     kernels.append({
         'name': 'path_kernel', 'route': 'cuda', 'source': PATH_SOURCE,
-        'replaces': REPLACES['path'], 'launches': mega['path'],
-        'max_abs_err': errs['path'], 'ms': pk['cornell'][0],
+        'replaces': REPLACES['path'], 'launches': counts['megakernel']['path'],
+        **errs['path'], 'ms': pk['cornell'][0],
         'plain_ms': pk['cornell'][1], 'call_ms': pk['cornell'][2],
         'ms_by_scene': {k: v[0] for k, v in pk.items()},
         'plain_ms_by_scene': {k: v[1] for k, v in pk.items()},
         'ptxas': ptxas.get('path_kernel', '')})
+    kernels.append(entry('closest', KERNEL_SOURCE,
+                         counts['table']['closest'], kt['cornell'],
+                         ms_monkey=kt['cornell_monkey']['closest'][0],
+                         plain_ms_monkey=kt['cornell_monkey']['closest'][1]))
+    kernels += [entry(k, BLOCKED_SOURCE, counts['blocked'][k],
+                      kt['cornell_highpoly'])
+                for k in ('blocked_shade', 'blocked_any')]
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -13,16 +13,20 @@ and never ptina_tpu, which would drag JAX in.  Importing it needs neither
 nvcc nor a GPU: a kernel library is built and loaded only when a wrapper
 first receives a CUDA tensor.
 
-Ported so far: the path integrator over the dense-route scene build
-(the five megakernel-eligible benchmark scenes: cornell_box,
-cornell_monkey, textured cornell, envlight_scene, matball), Sobol
-sampling, Disney shading, lights and textures, in both routes:
+Ported so far: the path integrator over the scene build (the five
+megakernel-eligible benchmark scenes: cornell_box, cornell_monkey,
+textured cornell, envlight_scene, matball; and the big scene
+cornell_highpoly, Morton-ordered in 512-face blocks), Sobol sampling,
+Disney shading, lights and textures, in both routes:
   * the path megakernel (engine/fused.py, csrc/fused_path.cu): one launch
     per sample, primary and explicit-uniform heads; render_sample's route
     for eligible scenes on the card;
   * the wavefront (engine/path.py) with the two dense casts
     (intersect/dense_cast.py, csrc/dense_cast.cu: closest hit +
-    attributes, and occlusion).
+    attributes, and occlusion) or, on big scenes, the two blocked casts
+    (intersect/blocked.py, csrc/blocked_cast.cu);
+and the table-level intersect.cast_closest / cast_any (the closest kernel
+of csrc/dense_cast.cu).
 '''
 
 __version__ = '0.1.0'

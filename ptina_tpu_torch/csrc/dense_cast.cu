@@ -1,14 +1,19 @@
-// Dense ray casts for the wavefront path integrator, Hopper (sm_90a).
+// Dense ray casts, Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels of ptina_tpu/intersect/pallas_cast.py that
-// the wavefront main path launches:
-//   shade_kernel  <- _shade_kernel (pallas_cast.py:69, pallas_cast_shade):
-//                    closest hit + barycentric interpolation of 6 attribute
-//                    channels x 3 corners (nrm3, uv2, mtlid);
-//   any_kernel    <- _any_kernel (pallas_cast.py:62, pallas_cast_any):
-//                    occlusion, a valid hit with t < min(tmax, INF).
+// Replaces the three Pallas kernels of ptina_tpu/intersect/pallas_cast.py:
+//   shade_kernel   <- _shade_kernel (pallas_cast.py:69, pallas_cast_shade):
+//                     closest hit + barycentric interpolation of 6 attribute
+//                     channels x 3 corners (nrm3, uv2, mtlid); the wavefront
+//                     main path's closest cast;
+//   any_kernel     <- _any_kernel (pallas_cast.py:62, pallas_cast_any):
+//                     occlusion, a valid hit with t < min(tmax, INF);
+//   closest_kernel <- _closest_kernel (pallas_cast.py:51,
+//                     pallas_cast_closest): t, index, u and v only, behind the
+//                     table-level intersect.cast_closest.  The shade kernel's
+//                     body compiled without its attribute epilogue.
 // The per-pair math is the hit contract of plucker.cuh; the plain torch
-// versions are intersect/dense_cast.py:cast_shade_plain / cast_any_plain.
+// versions are intersect/dense_cast.py:cast_shade_plain / cast_any_plain /
+// cast_closest_plain.
 //
 // What bounds it on this card: every ray meets every face, ~25 FP32 ops per
 // (ray, face) pair (the dot products for U, V, B, An; W; the sign tests;
@@ -48,16 +53,17 @@ __device__ __forceinline__ void stage_faces(float4* sc, const float4* coef,
     sc[k] = coef[base * 4 + k];
 }
 
-__global__ void __launch_bounds__(kBlock)
-shade_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
-             const float* __restrict__ oz, const float* __restrict__ dx,
-             const float* __restrict__ dy, const float* __restrict__ dz,
-             const int* __restrict__ avoid, const float4* __restrict__ coef,
-             const float* __restrict__ attr, int n, int f, int fid_mask,
-             float* __restrict__ t_out, int* __restrict__ idx_out,
-             bool* __restrict__ hit_out, float* __restrict__ u_out,
-             float* __restrict__ v_out, float* __restrict__ attrs_out) {
-  __shared__ float4 sc[kChunk * 4];
+// The closest cast of one ray per thread; kAttrs adds the attribute
+// epilogue (shade_kernel), without it the result is the Hit alone
+// (closest_kernel).  sc: the block's shared face chunk.
+template <bool kAttrs>
+__device__ __forceinline__ void closest_cast(
+    float4* sc, const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const int* __restrict__ avoid, const float4* __restrict__ coef,
+    const float* __restrict__ attr, int n, int f, int fid_mask,
+    const ptina::HitOut& out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool live = i < n;
   ptina::Ray r = live ? ptina::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i],
@@ -82,32 +88,36 @@ shade_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     __syncthreads();  // before the next chunk overwrites sc
   }
   if (!live) return;
-
   if (best == ptina::kKeyMiss) {
-    t_out[i] = ptina::kInf;
-    idx_out[i] = -1;
-    hit_out[i] = false;
-    u_out[i] = 0.f;
-    v_out[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < ptina::kChannels; ++c) attrs_out[c * n + i] = 0.f;
+    ptina::store_miss<kAttrs>(out, i, n);
     return;
   }
-  const int w = best & fid_mask;
-  float u, v;
-  ptina::winner_uv(r, reinterpret_cast<const float*>(coef) + w * ptina::kCoef,
-                   &u, &v);
-  t_out[i] = ptina::key_decode_t(best, fid_mask);
-  idx_out[i] = w;
-  hit_out[i] = true;
-  u_out[i] = u;
-  v_out[i] = v;
-  const float w0 = 1.0f - u - v;
-  const float* a = attr + w * ptina::kAttr;  // corner-major: a[k * 6 + c]
-#pragma unroll
-  for (int c = 0; c < ptina::kChannels; ++c)
-    attrs_out[c * n + i] = a[c] * w0 + a[ptina::kChannels + c] * u +
-                           a[2 * ptina::kChannels + c] * v;
+  ptina::store_hit<kAttrs>(out, r, reinterpret_cast<const float*>(coef), attr,
+                           best & fid_mask,
+                           ptina::key_decode_t(best, fid_mask), i, n);
+}
+
+__global__ void __launch_bounds__(kBlock)
+shade_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+             const float* __restrict__ oz, const float* __restrict__ dx,
+             const float* __restrict__ dy, const float* __restrict__ dz,
+             const int* __restrict__ avoid, const float4* __restrict__ coef,
+             const float* __restrict__ attr, int n, int f, int fid_mask,
+             ptina::HitOut out) {
+  __shared__ float4 sc[kChunk * 4];
+  closest_cast<true>(sc, ox, oy, oz, dx, dy, dz, avoid, coef, attr, n, f,
+                     fid_mask, out);
+}
+
+__global__ void __launch_bounds__(kBlock)
+closest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+               const float* __restrict__ oz, const float* __restrict__ dx,
+               const float* __restrict__ dy, const float* __restrict__ dz,
+               const int* __restrict__ avoid, const float4* __restrict__ coef,
+               int n, int f, int fid_mask, ptina::HitOut out) {
+  __shared__ float4 sc[kChunk * 4];
+  closest_cast<false>(sc, ox, oy, oz, dx, dy, dz, avoid, coef, nullptr, n, f,
+                      fid_mask, out);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -166,7 +176,21 @@ int ptina_cast_shade(const float* ox, const float* oy, const float* oz,
                      void* stream) {
   shade_kernel<<<grid_for(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, avoid, reinterpret_cast<const float4*>(coef),
-      attr, n, f, fid_mask, t, idx, hit, u, v, attrs);
+      attr, n, f, fid_mask, ptina::HitOut{t, idx, hit, u, v, attrs});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Closest hit without attributes: the outputs of ptina_cast_shade but
+// attrs.
+int ptina_cast_closest(const float* ox, const float* oy, const float* oz,
+                       const float* dx, const float* dy, const float* dz,
+                       const int* avoid, const float* coef, int n, int f,
+                       int fid_mask, float* t, int* idx, bool* hit, float* u,
+                       float* v, void* stream) {
+  closest_kernel<<<grid_for(n), kBlock, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, avoid, reinterpret_cast<const float4*>(coef), n,
+      f, fid_mask, ptina::HitOut{t, idx, hit, u, v, nullptr});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-// The dense casts' hit contract as __device__ helpers.
+// The casts' hit contract as __device__ helpers.
 //
 // Reference: ptina_tpu/intersect/plucker.py (chunk_valid, the packed-key
 // minimum, key_decode_t and the winner's u/v rebuild).  The pure-torch twin
@@ -87,6 +87,55 @@ __device__ __forceinline__ void winner_uv(const Ray& r, const float* cw,
   float rb = fminf(__frcp_rn(bw), 1e18f);
   *u = uw * rb;
   *v = vw * rb;
+}
+
+// Per-ray outputs of a closest cast: t/u/v [n] f32, idx [n] i32, hit [n]
+// bool and, for the shade casts, attrs [6, n] (channel-major).
+struct HitOut {
+  float* t;
+  int* idx;
+  bool* hit;
+  float* u;
+  float* v;
+  float* attrs;  // unused without attributes (kAttrs false)
+};
+
+template <bool kAttrs>
+__device__ __forceinline__ void store_miss(const HitOut& o, int i, int n) {
+  o.t[i] = kInf;
+  o.idx[i] = -1;
+  o.hit[i] = false;
+  o.u[i] = 0.f;
+  o.v[i] = 0.f;
+  if (kAttrs) {
+#pragma unroll
+    for (int c = 0; c < kChannels; ++c) o.attrs[c * n + i] = 0.f;
+  }
+}
+
+// The winner w (a face id of the whole table) hit at t: its u, v rebuilt
+// from its coefficient row and, with kAttrs, its 18 corner attributes
+// (corner-major rows of attr: a[k * 6 + c]) interpolated barycentrically.
+template <bool kAttrs>
+__device__ __forceinline__ void store_hit(const HitOut& o, const Ray& r,
+                                          const float* coef,
+                                          const float* attr, int w, float t,
+                                          int i, int n) {
+  float u, v;
+  winner_uv(r, coef + w * kCoef, &u, &v);
+  o.t[i] = t;
+  o.idx[i] = w;
+  o.hit[i] = true;
+  o.u[i] = u;
+  o.v[i] = v;
+  if (kAttrs) {
+    const float w0 = 1.0f - u - v;
+    const float* a = attr + w * kAttr;
+#pragma unroll
+    for (int c = 0; c < kChannels; ++c)
+      o.attrs[c * n + i] =
+          a[c] * w0 + a[kChannels + c] * u + a[2 * kChannels + c] * v;
+  }
 }
 
 }  // namespace ptina

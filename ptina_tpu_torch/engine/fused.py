@@ -27,7 +27,8 @@ Eligibility (fused_eligible) is decided from the scene alone, before any
 build.  The port's own limits, from its kernel's resources: the scene is
 on a CUDA device and on the dense route (accel != 'blocked', at most
 MAX_FUSED_FACES = 8192 faces: the packed key's face-id field), and a
-textured environment has its atlas loaded.  The kernel reads every table
+textured environment has its atlas loaded.  Blocked-route scenes take the
+wavefront with the blocked casts, as the reference's do (fused.py:84).  The kernel reads every table
 through the L1/L2 caches from device memory, so the reference's VMEM caps
 (MAX_FUSED_TEX_BYTES / MAX_FUSED_TEX_BINDINGS) have no counterpart: any
 atlas, binding, material or light count fits.  The primary head's depth

@@ -18,7 +18,9 @@ for the BSDF sample.  No RNG is drawn: the uniforms are rotated Sobol.
 render_sample routes as the reference does (ptina_tpu/engine/path.py:
 211-223): fused=None takes the path megakernel (engine/fused.py, one
 launch per sample) for the Disney model on a fused_eligible scene (a
-dense-route scene on a CUDA device) and the wavefront otherwise;
+dense-route scene on a CUDA device) and the wavefront otherwise, whose
+casts route by the scene (intersect/dispatch.py: the blocked two-level
+casts for big or accel='blocked' scenes);
 fused=True takes the megakernel (on the CPU its plain twin, which equals
 the wavefront bit for bit); fused=False the wavefront.  No gradients flow
 in this slice.

@@ -2,7 +2,12 @@
 Ray-scene intersection.
 
 Reference: ptina_tpu/intersect/__init__.py.  Ported: the hit contract
-(plucker), the brute oracle (brute), the dense casts with their CUDA
-kernels (dense_cast) and the scene-level routing (dispatch).  The blocked
-two-level cast and the BVH builders are later work.
+(plucker), the brute oracle (brute), the dense casts (dense_cast) and the
+blocked two-level casts (blocked) with their CUDA kernels, and the routing
+(dispatch) with its table-level entry points, exported here as in the
+reference.  The BVH builders (lbvh, middlebvh) are later work.
 '''
+
+from ptina_tpu_torch.intersect.brute import Hit  # noqa: F401
+from ptina_tpu_torch.intersect.dispatch import (  # noqa: F401
+    cast_closest, cast_any)

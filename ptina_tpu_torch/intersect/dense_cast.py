@@ -1,8 +1,10 @@
 '''
-Dense single-pass ray casts: the wavefront integrator's two kernels.
+Dense single-pass ray casts: the wavefront integrator's two kernels, and
+the table-level closest cast.
 
 Reference: ptina_tpu/intersect/pallas_cast.py (`_shade_kernel` through
-`pallas_cast_shade`, `_any_kernel` through `pallas_cast_any`).
+`pallas_cast_shade`, `_any_kernel` through `pallas_cast_any`,
+`_closest_kernel` through `pallas_cast_closest`).
 
 Each cast has a hand-written CUDA kernel (csrc/dense_cast.cu, sm_90a) and
 a plain torch version beside it (the hit contract of plucker.py in torch
@@ -35,21 +37,19 @@ from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
                                               raise_on, stream_ptr)
 from ptina_tpu_torch.intersect.brute import Hit
 from ptina_tpu_torch.intersect.plucker import (
-    KEY_MISS, N_COEF, key_mask_for, ray_features, pair_hits, pair_keys,
-    key_decode_t, winner_uv)
+    KEY_MISS, N_ATTR, N_COEF, check_rays, check_table, face_chunk,
+    key_mask_for, ray_features, pair_hits, pair_keys, key_decode_t,
+    winner_hit)
 
-__all__ = ['cast_shade', 'cast_any', 'cast_shade_plain', 'cast_any_plain',
-           'build_library', 'LAUNCHES', 'MAX_DENSE_FACES', 'N_ATTR']
+__all__ = ['cast_shade', 'cast_any', 'cast_closest', 'cast_shade_plain',
+           'cast_any_plain', 'cast_closest_plain', 'build_library',
+           'LAUNCHES', 'MAX_DENSE_FACES', 'N_ATTR']
 
 MAX_DENSE_FACES = 8192  # reference MAX_VMEM_FACES
-N_ATTR = 18             # 3 corners x (nrm3, uv2, mtlid)
 
-LAUNCHES = {'shade': 0, 'any': 0}
+LAUNCHES = {'shade': 0, 'any': 0, 'closest': 0}
 
 _SOURCES = ('dense_cast.cu', 'plucker.cuh')
-
-# elements per [N, Fc] temporary of the plain casts (bounds their memory)
-_PLAIN_PAIRS = 1 << 24
 
 
 @functools.lru_cache(maxsize=1)
@@ -64,60 +64,35 @@ def build_library():
     lib.ptina_cast_shade.restype = i
     lib.ptina_cast_any.argtypes = [p] * 9 + [i, i] + [p] * 2
     lib.ptina_cast_any.restype = i
+    lib.ptina_cast_closest.argtypes = [p] * 8 + [i, i, i] + [p] * 6
+    lib.ptina_cast_closest.restype = i
     return lib, log
 
 
-def _check_rays(ro, rd, avoid, extra=()):
-    rows = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z) + tuple(extra)
-    n = ro.x.shape[0]
-    dev = ro.x.device
-    for r in rows:
-        if r.dtype != torch.float32 or r.dim() != 1 or r.shape[0] != n:
-            raise ValueError('ray rows must be [N] float32')
-        if r.device != dev:
-            raise ValueError('ray rows must share one device')
-    if avoid.dtype != torch.int32 or avoid.shape != (n,) \
-            or avoid.device != dev:
-        raise ValueError('avoid must be [N] int32 on the rays\' device')
-    return n, dev
-
-
-def _check_table(t, cols, dev, name):
-    if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols:
-        raise ValueError(f'{name} must be [F, {cols}] float32')
-    if t.device != dev:
-        raise ValueError(f'{name} must lie on the rays\' device')
-    if t.shape[0] > MAX_DENSE_FACES:
-        raise ValueError(f'{t.shape[0]} faces exceed the dense casts\' '
-                         f'{MAX_DENSE_FACES}')
-
-
-def _face_chunk(n, f):
-    return max(1, min(f, _PLAIN_PAIRS // max(n, 1)))
-
-
-def cast_shade_plain(ro, rd, avoid, coef, attr):
-    '''Plain torch version of the shade kernel: (Hit, attrs [6, N]).'''
+def _best_keys(ro, rd, avoid, coef):
     n, f = ro.x.shape[0], coef.shape[0]
     fid_mask = key_mask_for(f)
     p = ray_features(ro, rd)
     best = torch.full((n,), KEY_MISS, dtype=torch.int32, device=ro.x.device)
-    fc = _face_chunk(n, f)
+    fc = face_chunk(n, f)
     for base in range(0, f, fc):
         best = torch.minimum(best, pair_keys(p, ro, rd, coef[base:base + fc],
                                              base, avoid, fid_mask))
-    hitm = best != KEY_MISS
-    w = torch.where(hitm, best & fid_mask, 0).long()
-    u, v = winner_uv(p, rd, coef[w])
-    a = attr[w]  # [N, 18] corner-major: a[:, k * 6 + c]
-    w0 = 1.0 - u - v
-    att = (a[:, 0:6] * w0[:, None] + a[:, 6:12] * u[:, None]
-           + a[:, 12:18] * v[:, None])
-    hit = Hit(hit=hitm,
-              t=torch.where(hitm, key_decode_t(best, fid_mask), INF),
-              index=torch.where(hitm, best & fid_mask, -1),
-              u=torch.where(hitm, u, 0.0), v=torch.where(hitm, v, 0.0))
-    return hit, torch.where(hitm[None, :], att.t(), 0.0)
+    return p, best, fid_mask
+
+
+def cast_shade_plain(ro, rd, avoid, coef, attr):
+    '''Plain torch version of the shade kernel: (Hit, attrs [6, N]).'''
+    p, best, fid_mask = _best_keys(ro, rd, avoid, coef)
+    return winner_hit(p, rd, coef, attr, best != KEY_MISS, best & fid_mask,
+                      key_decode_t(best, fid_mask))
+
+
+def cast_closest_plain(ro, rd, avoid, coef):
+    '''Plain torch version of the closest kernel: Hit.'''
+    p, best, fid_mask = _best_keys(ro, rd, avoid, coef)
+    return winner_hit(p, rd, coef, None, best != KEY_MISS, best & fid_mask,
+                      key_decode_t(best, fid_mask))
 
 
 def cast_any_plain(ro, rd, avoid, tmax, coef):
@@ -126,7 +101,7 @@ def cast_any_plain(ro, rd, avoid, tmax, coef):
     n, f = ro.x.shape[0], coef.shape[0]
     p = ray_features(ro, rd)
     occ = torch.zeros(n, dtype=torch.bool, device=ro.x.device)
-    fc = _face_chunk(n, f)
+    fc = face_chunk(n, f)
     for base in range(0, f, fc):
         valid, ts, _ = pair_hits(p, ro, rd, coef[base:base + fc], base, avoid)
         occ = occ | torch.any(valid & (ts < INF) & (ts < tmax[:, None]),
@@ -139,9 +114,9 @@ def cast_shade(ro, rd, avoid, coef, attr):
     float32 rows; avoid [N] int32 (-1 = none); coef [F, 16] and attr
     [F, 18] from plucker.pack_faces.  Returns (Hit, attrs [6, N]:
     nrm.xyz, uv.xy, mtlid; zeros on a miss).'''
-    n, dev = _check_rays(ro, rd, avoid)
-    _check_table(coef, N_COEF, dev, 'coef')
-    _check_table(attr, N_ATTR, dev, 'attr')
+    n, dev = check_rays(ro, rd, avoid)
+    check_table(coef, N_COEF, dev, 'coef', MAX_DENSE_FACES)
+    check_table(attr, N_ATTR, dev, 'attr', MAX_DENSE_FACES)
     if dev.type == 'cpu':
         return cast_shade_plain(ro, rd, avoid, coef, attr)
     if dev.type != 'cuda':
@@ -170,8 +145,8 @@ def cast_shade(ro, rd, avoid, coef, attr):
 def cast_any(ro, rd, avoid, tmax, coef):
     '''Occlusion cast: [N] bool, True where a face other than avoid is hit
     at t < min(tmax, INF).  coef [F, 16] from plucker.pack_faces.'''
-    n, dev = _check_rays(ro, rd, avoid, extra=(tmax,))
-    _check_table(coef, N_COEF, dev, 'coef')
+    n, dev = check_rays(ro, rd, avoid, extra=(tmax,))
+    check_table(coef, N_COEF, dev, 'coef', MAX_DENSE_FACES)
     if dev.type == 'cpu':
         return cast_any_plain(ro, rd, avoid, tmax, coef)
     if dev.type != 'cuda':
@@ -188,3 +163,31 @@ def cast_any(ro, rd, avoid, tmax, coef):
         raise_on(err, 'any_kernel')
         LAUNCHES['any'] += 1
     return occ
+
+
+def cast_closest(ro, rd, avoid, coef):
+    '''Closest hit without attributes: Hit (t INF, index -1 and u, v 0 on a
+    miss).  coef [F, 16] from plucker.pack_faces.'''
+    n, dev = check_rays(ro, rd, avoid)
+    check_table(coef, N_COEF, dev, 'coef', MAX_DENSE_FACES)
+    if dev.type == 'cpu':
+        return cast_closest_plain(ro, rd, avoid, coef)
+    if dev.type != 'cuda':
+        raise ValueError(f'no cast for device {dev}')
+    f = coef.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if n:
+        if coef.data_ptr() % 16:
+            raise ValueError('coef must be 16-byte aligned')
+        lib, _ = build_library()
+        err = lib.ptina_cast_closest(
+            ptr(ro.x), ptr(ro.y), ptr(ro.z), ptr(rd.x), ptr(rd.y),
+            ptr(rd.z), ptr(avoid), ptr(coef), n, f, key_mask_for(f),
+            ptr(t), ptr(idx), ptr(hit), ptr(u), ptr(v), stream_ptr())
+        raise_on(err, 'closest_kernel')
+        LAUNCHES['closest'] += 1
+    return Hit(hit=hit, t=t, index=idx, u=u, v=v)

@@ -1,13 +1,21 @@
 '''
-Scene-level ray casts for the integrator.
+Ray casts for the integrator (scene level) and for callers holding a bare
+face table (table level).
 
-Reference: ptina_tpu/intersect/dispatch.py (`cast_shaded`, `cast_shadow`).
-The reference routes by JAX backend (Pallas on TPU, brute XLA elsewhere);
-the port has one dense route whose wrappers (intersect/dense_cast.py)
-pick the CUDA kernel or the plain torch version by the tensors' device.
-Scenes that need the blocked two-level route (more than MAX_DENSE_FACES
-faces, or accel='blocked') raise NotImplementedError: that route is
-later work.
+Reference: ptina_tpu/intersect/dispatch.py.  The scene-level casts
+(`cast_shaded`, `cast_shadow`) route by the reference's rule (route,
+dispatch.py:41-53, its 'pallas' read as 'dense'): accel='blocked', or more
+than MAX_DENSE_FACES faces under accel='auto', takes the blocked two-level
+cast (intersect/blocked.py); every other scene the dense single-pass casts
+(intersect/dense_cast.py).  accel='dense' above MAX_DENSE_FACES is the
+reference's XLA brute route, which is not ported: it raises
+NotImplementedError.  Each route's wrappers pick the CUDA kernel or the
+plain torch version by the tensors' device.
+
+The table-level `cast_closest` / `cast_any` (dispatch.py:66-77) pack the
+face table per call, as the reference does, and run the dense casts; above
+MAX_DENSE_FACES faces the reference takes brute there too, which raises
+here for the same reason.
 
 Rays are SoA V3 rows; results are dense [N] rows.
 '''
@@ -15,33 +23,90 @@ Rays are SoA V3 rows; results are dense [N] rows.
 import torch
 
 from ptina_tpu_torch.utils.vec import V3, vnormalize
-from ptina_tpu_torch.intersect import dense_cast
+from ptina_tpu_torch.intersect import blocked, dense_cast
+from ptina_tpu_torch.intersect.blocked import (BLOCK_FACES, MAX_BLOCKS,
+                                               MAX_BLOCKED_FACES)
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
+from ptina_tpu_torch.intersect.plucker import pack_faces
 
-__all__ = ['cast_shaded', 'cast_shadow', 'MAX_DENSE_FACES']
+__all__ = ['cast_closest', 'cast_any', 'cast_shaded', 'cast_shadow',
+           'route', 'MAX_DENSE_FACES']
 
 
-def _dense_only(scene):
-    f = scene.face_coef.shape[0]
-    if scene.accel == 'blocked' or f > MAX_DENSE_FACES:
-        raise NotImplementedError(
-            f'{f} faces with accel={scene.accel!r} need the blocked '
-            f'two-level cast, which is not ported yet')
+def _no_brute(f):
+    raise NotImplementedError(
+        f'{f} faces on the dense route exceed its {MAX_DENSE_FACES}: the '
+        f'reference casts them with XLA brute, which is not ported (use '
+        f'accel=\'auto\' or \'blocked\')')
+
+
+def route(nfaces, accel):
+    '''The cast route of a scene of `nfaces` padded faces built with
+    accel 'auto', 'dense' or 'blocked': 'dense' or 'blocked'.  The one
+    copy of the rule: make_scene asks it whether to Morton-order, and
+    cast_shaded / cast_shadow whom to call.  Raises for the two cases
+    the port cannot serve.'''
+    if accel == 'dense' and nfaces > MAX_DENSE_FACES:
+        _no_brute(nfaces)
+    if accel != 'blocked' and nfaces <= MAX_DENSE_FACES:
+        return 'dense'
+    if nfaces > MAX_BLOCKED_FACES:
+        raise ValueError(f'{nfaces} faces exceed the blocked cast\'s '
+                         f'{MAX_BLOCKS} blocks of {BLOCK_FACES}')
+    return 'blocked'
+
+
+def _route(scene):
+    return route(scene.face_coef.shape[0], scene.accel)
+
+
+def _as_v3(a):
+    '''V3 rays as they are; an [N, 3] tensor split into rows.'''
+    if isinstance(a, V3):
+        return a
+    return V3(*(a[:, k].contiguous() for k in range(3)))
+
+
+def _table(tri_w2b):
+    if tri_w2b.shape[0] > MAX_DENSE_FACES:
+        _no_brute(tri_w2b.shape[0])
+    coef, _ = pack_faces(tri_w2b)
+    return coef
+
+
+def cast_closest(ro, rd, tri_w2b, avoid):
+    '''Closest hit against a face table tri_w2b [F, 3, 4] (packed per
+    call): Hit.'''
+    return dense_cast.cast_closest(_as_v3(ro), _as_v3(rd), avoid,
+                                   _table(tri_w2b))
+
+
+def cast_any(ro, rd, tri_w2b, avoid, tmax):
+    '''Occlusion against a face table tri_w2b [F, 3, 4] (packed per call):
+    [N] bool.'''
+    return dense_cast.cast_any(_as_v3(ro), _as_v3(rd), avoid, tmax,
+                               _table(tri_w2b))
 
 
 def cast_shadow(scene, ro, rd, avoid, tmax):
-    '''Occlusion cast: [N] bool.'''
-    _dense_only(scene)
+    '''Occlusion cast routed by the scene: [N] bool.'''
+    if _route(scene) == 'blocked':
+        return blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
+                                        scene.block_bounds)
     return dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef)
 
 
 def cast_shaded(scene, ro, rd, avoid):
-    '''Closest hit + shading attributes.  Returns (hit, normal V3 unit
-    (not yet two-sided-flipped), tex_s [N], tex_t [N], mtlid [N] int32
-    (-1 on a miss)).'''
-    _dense_only(scene)
-    hit, attrs = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
-                                       scene.face_attr)
+    '''Closest hit + shading attributes, routed by the scene.  Returns
+    (hit, normal V3 unit (not yet two-sided-flipped), tex_s [N], tex_t [N],
+    mtlid [N] int32 (-1 on a miss)).'''
+    if _route(scene) == 'blocked':
+        hit, attrs = blocked.blocked_cast_shade(
+            ro, rd, avoid, scene.face_coef, scene.face_attr,
+            scene.block_bounds)
+    else:
+        hit, attrs = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
+                                           scene.face_attr)
     normal = vnormalize(V3(attrs[0], attrs[1], attrs[2]))
     mtlid = torch.where(hit.hit, torch.round(attrs[5]).to(torch.int32), -1)
     return hit, normal, attrs[3], attrs[4], mtlid

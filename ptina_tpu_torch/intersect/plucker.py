@@ -1,6 +1,7 @@
 '''
-The dense casts' hit contract as pure torch: the plain twin of the
-`__device__` helpers in csrc/plucker.cuh.
+The casts' hit contract as pure torch: the plain twin of the `__device__`
+helpers in csrc/plucker.cuh, and the plumbing the dense and blocked casts
+share (operand checks, face chunking, the winner's Hit).
 
 Reference: ptina_tpu/intersect/plucker.py.  The reference evaluates the
 contract as one [5F, 14] @ [14, N] MXU matmul per face chunk plus a
@@ -31,15 +32,21 @@ Contract notes carried over from the reference:
 
 import torch
 
+from ptina_tpu_torch.intersect.brute import Hit
 from ptina_tpu_torch.utils.mathutils import INF
 
-__all__ = ['KEY_FID_MASK', 'KEY_MISS', 'N_COEF', 'key_mask_for',
+__all__ = ['KEY_FID_MASK', 'KEY_MISS', 'N_COEF', 'N_ATTR', 'key_mask_for',
            'pack_faces', 'ray_features', 'pair_hits', 'pair_keys',
-           'key_decode_t', 'winner_uv']
+           'key_decode_t', 'winner_uv', 'winner_hit', 'check_rays',
+           'check_table', 'face_chunk']
 
 KEY_FID_MASK = 2047
 KEY_MISS = 2 ** 31 - 1
 N_COEF = 16  # per-face coefficients: cu (6), cv (6), m0 (4)
+N_ATTR = 18  # 3 corners x (nrm3, uv2, mtlid)
+
+# elements per [N, Fc] temporary of the plain casts (bounds their memory)
+_PLAIN_PAIRS = 1 << 24
 
 _IJ = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 
@@ -59,14 +66,15 @@ def _anti(ma, mb):
                         for i, j in _IJ], dim=1)
 
 
-def pack_faces(tri_w2b, tri_attrs):
+def pack_faces(tri_w2b, tri_attrs=None):
     '''The per-face tables the casts read, computed once per scene:
     coef [F, 16] = cu (6), cv (6), m0 (4) and attr [F, 18] = the corner-
     major attribute rows of tri_attrs [18, F], one face per row (the
-    winner's corners are one contiguous load).'''
+    winner's corners are one contiguous load; None without tri_attrs).'''
     m0, m1, m2 = tri_w2b[:, 0], tri_w2b[:, 1], tri_w2b[:, 2]
     coef = torch.cat([_anti(m1, m0), _anti(m2, m0), m0], dim=1)
-    return coef.contiguous(), tri_attrs.t().contiguous()
+    attr = None if tri_attrs is None else tri_attrs.t().contiguous()
+    return coef.contiguous(), attr
 
 
 def ray_features(ro, rd):
@@ -129,3 +137,56 @@ def winner_uv(p, rd, cw):
     bw = cw[:, 12] * rd.x + cw[:, 13] * rd.y + cw[:, 14] * rd.z
     rb = torch.clamp_max(1.0 / bw, 1e18)
     return uw * rb, vw * rb
+
+
+def winner_hit(p, rd, coef, attr, hitm, w, t):
+    '''The plain casts' result from each ray's winner: w [N] face ids of
+    the whole table and t [N] decoded where hitm, anything elsewhere.
+    Returns the Hit and, given attr, the interpolated attributes [6, N]
+    (zeros on a miss).'''
+    w = torch.where(hitm, w, 0).long()
+    u, v = winner_uv(p, rd, coef[w])
+    hit = Hit(hit=hitm, t=torch.where(hitm, t, INF),
+              index=torch.where(hitm, w.to(torch.int32), -1),
+              u=torch.where(hitm, u, 0.0), v=torch.where(hitm, v, 0.0))
+    if attr is None:
+        return hit
+    a = attr[w]  # [N, 18] corner-major: a[:, k * 6 + c]
+    w0 = 1.0 - u - v
+    att = (a[:, 0:6] * w0[:, None] + a[:, 6:12] * u[:, None]
+           + a[:, 12:18] * v[:, None])
+    return hit, torch.where(hitm[None, :], att.t(), 0.0)
+
+
+def face_chunk(n, f):
+    '''Faces per [N, Fc] temporary of a plain cast.'''
+    return max(1, min(f, _PLAIN_PAIRS // max(n, 1)))
+
+
+def check_rays(ro, rd, avoid, extra=()):
+    '''Validate the [N] f32 ray rows (and extra rows) and the [N] i32
+    avoid row; returns (N, device).'''
+    rows = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z) + tuple(extra)
+    n = ro.x.shape[0]
+    dev = ro.x.device
+    for r in rows:
+        if r.dtype != torch.float32 or r.dim() != 1 or r.shape[0] != n:
+            raise ValueError('ray rows must be [N] float32')
+        if r.device != dev:
+            raise ValueError('ray rows must share one device')
+    if avoid.dtype != torch.int32 or avoid.shape != (n,) \
+            or avoid.device != dev:
+        raise ValueError('avoid must be [N] int32 on the rays\' device')
+    return n, dev
+
+
+def check_table(t, cols, dev, name, max_faces):
+    '''Validate a per-face [F, cols] f32 table of at most max_faces rows
+    on the rays' device.'''
+    if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols:
+        raise ValueError(f'{name} must be [F, {cols}] float32')
+    if t.device != dev:
+        raise ValueError(f'{name} must lie on the rays\' device')
+    if t.shape[0] > max_faces:
+        raise ValueError(f'{t.shape[0]} faces exceed the cast\'s '
+                         f'{max_faces}')

@@ -1,11 +1,11 @@
 '''
 Scene representation: one dataclass of tensors.
 
-Reference: ptina_tpu/scene.py (the dense-route subset).  The host half
-(material, light and texture tables, face padding) is copied numpy code;
-the per-face functionals are computed with torch in float32 in the
-reference's operation order, on the host, and the finished tensors are
-moved to the scene's device once.
+Reference: ptina_tpu/scene.py.  The host half (material, light and
+texture tables, face padding, the Morton face order and the per-block
+boxes) is copied numpy code; the per-face functionals are computed with
+torch in float32 in the reference's operation order, on the host, and the
+finished tensors are moved to the scene's device once.
 
 Static structure stays plain Python attributes, as in the reference:
 Materials.zero / textured, Lights.kinds, Scene.accel and
@@ -15,9 +15,14 @@ Beyond the reference's fields the port carries the two per-face tables
 its cast kernels read (intersect/plucker.pack_faces), computed ONCE per
 scene: the reference repacks them inside every traced cast.
 
-Not ported yet (blocked route, later work): Morton face order,
-block_bounds and the t5b/attrsb block tables.  make_scene raises for
-scenes that would need them.
+Big scenes (more than MAX_DENSE_FACES padded faces, or accel='blocked')
+take the blocked two-level cast (intersect/blocked.py): their faces are
+Morton-ordered and padded to whole BLOCK_FACES blocks, and block_bounds
+holds each block's box.  Block b is rows b * BLOCK_FACES ... of the same
+face_coef / face_attr tables; the reference's transposed t5b / attrsb
+block tables are a TPU layout and are not carried.  accel='dense' above
+MAX_DENSE_FACES (the reference's XLA brute route) is not ported and
+raises NotImplementedError.
 '''
 
 from __future__ import annotations
@@ -27,14 +32,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from ptina_tpu_torch.intersect.blocked import BLOCK_FACES, MAX_BLOCKS
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
+from ptina_tpu_torch.intersect.dispatch import route
 from ptina_tpu_torch.intersect.plucker import pack_faces
 
 __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'make_materials', 'make_lights', 'make_textures',
            'scene_from_numpy', 'precompute_tri_functionals',
-           'pack_corner_attrs', 'DEFAULT_MATERIAL', 'MATERIAL_PARAMS',
-           'LIGHT_POINT', 'LIGHT_AREA', 'MAX_DENSE_FACES']
+           'pack_corner_attrs', 'morton_face_order', 'compute_block_bounds',
+           'DEFAULT_MATERIAL', 'MATERIAL_PARAMS', 'LIGHT_POINT', 'LIGHT_AREA',
+           'MAX_DENSE_FACES', 'BLOCK_FACES', 'MAX_BLOCKS']
 
 MATERIAL_PARAMS = (
     'basecolor', 'metallic', 'roughness', 'specular', 'specularTint',
@@ -108,6 +116,7 @@ class Scene:
     # cast-kernel tables (intersect/plucker.pack_faces), built once
     face_coef: torch.Tensor  # [F, 16] f32
     face_attr: torch.Tensor  # [F, 18] f32
+    block_bounds: torch.Tensor  # [ceil(F / BLOCK_FACES), 8] f32 boxes
     accel: str = 'auto'
     world_tex_id: int = -1
 
@@ -158,6 +167,55 @@ def pack_corner_attrs(tri_nrm, tri_uv, tri_mtl):
     mtl = tri_mtl.to(torch.float32)[:, None, None].expand(f, 3, 1)
     per_corner = torch.cat([tri_nrm, tri_uv, mtl], dim=-1)  # [F, 3, 6]
     return per_corner.permute(1, 2, 0).reshape(18, f)
+
+
+def _morton30_host(p):
+    '''30-bit Morton codes for points p [N, 3] in [0, 1] (host numpy;
+    a verbatim copy of the reference's, so face orders are bit-equal;
+    the bit spreading of ptina/tree/lbvh.py:12-30's morton3D).'''
+    q = np.clip(np.floor(p * 1024.0), 0, 1023).astype(np.uint32)
+
+    def expand(v):
+        v = (v * np.uint32(0x00010001)) & np.uint32(0xFF0000FF)
+        v = (v * np.uint32(0x00000101)) & np.uint32(0x0F00F00F)
+        v = (v * np.uint32(0x00000011)) & np.uint32(0xC30C30C3)
+        v = (v * np.uint32(0x00000005)) & np.uint32(0x49249249)
+        return v
+    return expand(q[:, 0]) * 4 + expand(q[:, 1]) * 2 + expand(q[:, 2])
+
+
+def morton_face_order(tri_pos):
+    '''Spatially-coherent face permutation: stable argsort of the Morton
+    codes of face centroids normalized to the scene AABB (the leaf order
+    of the reference's LBVH, ptina/tree/lbvh.py:168-208).  Host numpy —
+    runs once at scene build.'''
+    centers = tri_pos.reshape(-1, 3, 3).mean(axis=1)
+    lo = centers.min(axis=0)
+    hi = centers.max(axis=0)
+    norm = (centers - lo) / np.maximum(hi - lo, 1e-12)
+    return np.argsort(_morton30_host(norm), kind='stable')
+
+
+def compute_block_bounds(tri_pos, nfaces, block_faces=BLOCK_FACES):
+    '''Per-face-block AABBs [ceil(F / block), 8] of (lo.xyz, hi.xyz, 0, 0)
+    over the padded face table tri_pos [F, 3, 3].  Only live faces
+    (index < nfaces) contribute; blocks of pure padding get an inverted
+    box (+big lo, -big hi) so every slab test rejects them.  Host numpy.'''
+    f = tri_pos.shape[0]
+    nblocks = max(1, -(-f // block_faces))
+    big = np.float32(3.4e38)
+    out = np.zeros((nblocks, 8), np.float32)
+    out[:, 0:3] = big
+    out[:, 3:6] = -big
+    for b in range(nblocks):
+        s = b * block_faces
+        e = min(min(s + block_faces, f), nfaces)
+        if e <= s:
+            continue
+        verts = tri_pos[s:e].reshape(-1, 3)
+        out[b, 0:3] = verts.min(axis=0)
+        out[b, 3:6] = verts.max(axis=0)
+    return out
 
 
 def make_materials(materials=None, max_materials=None, device='cpu'):
@@ -270,20 +328,13 @@ def make_lights(lights=None, max_lights=None, default_light=True,
                   kinds=kinds)
 
 
-def _check_dense(nfaces_padded, accel):
-    if accel == 'blocked' or nfaces_padded > MAX_DENSE_FACES:
-        raise NotImplementedError(
-            f'{nfaces_padded} faces with accel={accel!r} needs the blocked '
-            f'two-level cast, which is not ported yet (dense route: at most '
-            f'{MAX_DENSE_FACES} faces)')
-
-
 def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
             materials, textures, lights, world_fac, world_tex, cam_v2w,
             cam_w2v, accel, world_tex_id, device):
     '''Assemble the Scene from host tensors, add the kernel tables and
     move everything to `device`.'''
     coef, attr = pack_faces(tri_w2b, tri_attrs)
+    bounds = compute_block_bounds(np.asarray(tri_pos), int(nfaces))
 
     def dev(x):
         if isinstance(x, np.ndarray):
@@ -299,7 +350,7 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
                                device=device),
         cam_v2w=dev(np.asarray(cam_v2w, np.float32)),
         cam_w2v=dev(np.asarray(cam_w2v, np.float32)),
-        face_coef=dev(coef), face_attr=dev(attr),
+        face_coef=dev(coef), face_attr=dev(attr), block_bounds=dev(bounds),
         accel=accel, world_tex_id=int(world_tex_id))
 
 
@@ -313,10 +364,14 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
     vertices: [F*3, 8] float array (pos3 + nrm3 + uv2 per vertex).
     mtlids: [F] int material ids (-1 = default material).
     cam_pers: 4x4 projection @ view matrix (world -> clip).
-    The face count is padded to a multiple of pad_faces_to with all-zero
-    faces, which never hit.  Raises NotImplementedError for scenes that
-    need the blocked route (more than MAX_DENSE_FACES padded faces, or
-    accel='blocked').'''
+    accel: 'auto' | 'dense' | 'blocked' (intersect/dispatch.route routes
+    by it).  The face count is padded to a multiple of pad_faces_to with
+    all-zero faces, which never hit.  Scenes of the blocked route (more
+    than MAX_DENSE_FACES padded faces, or accel='blocked') are first
+    Morton-ordered and padded to whole BLOCK_FACES blocks, as the
+    reference's morton=None rule does (scene.py:422-432).  Raises
+    NotImplementedError for accel='dense' above MAX_DENSE_FACES, and
+    ValueError above MAX_BLOCKS blocks.'''
     from ptina_tpu_torch.io.matrix import ortho, lookat
     vertices = np.asarray(vertices, np.float32)
     if not (vertices.ndim == 2 and vertices.shape[1] == 8
@@ -331,8 +386,14 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
 
     fpad = max(pad_faces_to,
                ((nfaces + pad_faces_to - 1) // pad_faces_to) * pad_faces_to)
-    _check_dense(fpad, accel)
+    morton = route(fpad, accel) == 'blocked'
     tri = vertices.reshape(nfaces, 3, 8)
+    if morton and nfaces > 1:
+        perm = morton_face_order(tri[:, :, 0:3])
+        tri = tri[perm]
+        mtlids = mtlids[perm]
+    if morton:
+        fpad = -(-fpad // BLOCK_FACES) * BLOCK_FACES
     tri_pos = np.zeros((fpad, 3, 3), np.float32)
     tri_nrm = np.zeros((fpad, 3, 3), np.float32)
     tri_uv = np.zeros((fpad, 3, 2), np.float32)
@@ -377,10 +438,11 @@ def scene_from_numpy(arrays, device='cpu'):
       light_count, light_kinds (tuple), tex_data, tex_nx, tex_ny,
       world_fac, world_tex, cam_v2w, cam_w2v, accel (str).
 
-    The cast-kernel tables are derived here, not carried.'''
+    The cast-kernel tables and block_bounds are derived here, not
+    carried.'''
     a = arrays
     f = np.asarray(a['tri_w2b']).shape[0]
-    _check_dense(f, a.get('accel', 'auto'))
+    route(f, a.get('accel', 'auto'))
     def t(x, dev=device):
         return torch.tensor(np.asarray(x), device=dev)  # a copy
     tri = {k: t(a[k], 'cpu') for k in _TRI_KEYS}

@@ -5,9 +5,9 @@ Reference: ptina_tpu/scenes.py (numpy geometry builders copied, so the
 port needs no JAX).  Ported: cornell_box (34 triangles), cornell_monkey
 (978 triangles: a 944-triangle smooth UV sphere stands in for Suzanne),
 envlight_scene and matball (2,216 triangles each: a ground quad and a
-2,214-triangle sphere).  cornell_highpoly needs the blocked route and is
-later work.  The fixed benchmark camera is the reference's
-exams/benchmark.py:18-23 matrix.
+2,214-triangle sphere), and cornell_highpoly (101,782 triangles at its
+defaults: the big scene of the blocked route).  The fixed benchmark
+camera is the reference's exams/benchmark.py:18-23 matrix.
 '''
 
 import numpy as np
@@ -15,7 +15,7 @@ import numpy as np
 from ptina_tpu_torch.scene import make_scene, LIGHT_AREA, LIGHT_POINT
 
 __all__ = ['BENCH_CAMERA', 'cornell_box', 'cornell_monkey',
-           'envlight_scene', 'matball']
+           'cornell_highpoly', 'envlight_scene', 'matball']
 
 BENCH_CAMERA = np.array([
     [1.73205081e+00, 0.00000000e+00, 0.00000000e+00, 1.01348227e-02],
@@ -189,6 +189,29 @@ def cornell_monkey(device='cpu', **kw):
     '''Cornell + a 944-triangle smooth blob + a box = 978 triangles.'''
     shell, mtl = _cornell_shell()
     blob = _uv_sphere((0.0, 1.3, 0.2), 1.0)
+    tall = _box_tris((-1.2, 0.45, -0.9), (0.45, 0.45, 0.45),
+                     yaw=np.radians(20))
+    verts = np.concatenate([
+        _mesh_to_vertices(shell),
+        _mesh_to_vertices(blob, normals=_sphere_smooth_normals(
+            blob, (0.0, 1.3, 0.2))),
+        _mesh_to_vertices(tall),
+    ])
+    mtlids = np.asarray(mtl + [3] * blob.shape[0] + [0] * 12, np.int32)
+    kw.setdefault('cam_pers', BENCH_CAMERA)
+    kw.setdefault('lights', [_ceiling_light()])
+    kw.setdefault('world_fac', (0.05, 0.05, 0.05, 1.0))
+    return make_scene(verts, mtlids, materials=_materials(), device=device,
+                      **kw)
+
+
+def cornell_highpoly(nu=320, nv=160, device='cpu', **kw):
+    '''Cornell + a smooth UV sphere of 2 * nu * (nv - 1) triangles + a box
+    (101,782 triangles at the defaults): the big scene.  Above
+    MAX_DENSE_FACES it takes the blocked two-level cast, with
+    Morton-ordered face blocks (101,888 padded faces in 199 blocks).'''
+    shell, mtl = _cornell_shell()
+    blob = _uv_sphere((0.0, 1.3, 0.2), 1.0, nu=nu, nv=nv)
     tall = _box_tris((-1.2, 0.45, -0.9), (0.45, 0.45, 0.45),
                      yaw=np.radians(20))
     verts = np.concatenate([

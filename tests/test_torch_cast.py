@@ -13,6 +13,8 @@ Tolerances (the reference's own, test_intersect.py:127-170):
   * u, v: rtol 1e-3, atol 1e-4; interpolated attributes: atol 1e-4.
 '''
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,8 @@ from ptina_tpu.intersect.pallas_cast import pallas_cast_shade, pallas_cast_any
 from ptina_tpu.utils.vec import V3 as JV3
 from ptina_tpu_torch.utils.vec import V3
 from ptina_tpu_torch.intersect import brute as tbrute
-from ptina_tpu_torch.intersect import dense_cast, dispatch
+from ptina_tpu_torch.intersect import blocked, dense_cast, dispatch
+from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.plucker import pack_faces, key_mask_for
 from ptina_tpu_torch.scene import scene_from_numpy
 
@@ -292,11 +295,32 @@ def test_wrappers_validate_operands():
 
 
 def test_dispatch_refuses_blocked_route():
+    '''Scenes route by the reference's rule: accel='blocked' and big
+    'auto' scenes to the blocked casts, small 'auto' and 'dense' scenes
+    to the dense ones; 'dense' above MAX_DENSE_FACES is refused.'''
     scene = scene_from_numpy(jax_scene_arrays(jcornell_box()))
+    assert dispatch._route(scene) == 'dense'
+    scene.accel = 'dense'
+    assert dispatch._route(scene) == 'dense'
+    _, (tro, trd) = _rays(*_random_rays(np.random.RandomState(1), 64, True))
+    avoid = torch.full((64,), -1, dtype=torch.int32)
+    dense_hit, *dense_rest = dispatch.cast_shaded(scene, tro, trd, avoid)
     scene.accel = 'blocked'
-    _, (tro, trd) = _rays(*_random_rays(np.random.RandomState(1), 4, True))
-    avoid = torch.full((4,), -1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match='blocked'):
-        dispatch.cast_shaded(scene, tro, trd, avoid)
-    with pytest.raises(NotImplementedError, match='blocked'):
-        dispatch.cast_shadow(scene, tro, trd, avoid, torch.ones(4))
+    assert dispatch._route(scene) == 'blocked'
+    before = dict(blocked.LAUNCHES)
+    hit, *rest = dispatch.cast_shaded(scene, tro, trd, avoid)
+    # one block of 40 faces: the block-local key grid is the dense one
+    assert torch.equal(hit.index, dense_hit.index)
+    assert torch.equal(hit.t, dense_hit.t)
+    assert torch.equal(rest[-1], dense_rest[-1])
+    occ = dispatch.cast_shadow(scene, tro, trd, avoid, torch.full((64,), 2.0))
+    scene.accel = 'auto'
+    assert torch.equal(occ, dispatch.cast_shadow(scene, tro, trd, avoid,
+                                                 torch.full((64,), 2.0)))
+    assert blocked.LAUNCHES == before  # CPU: plain versions only
+    big = SimpleNamespace(accel='auto',
+                          face_coef=torch.zeros(MAX_DENSE_FACES + 1, 16))
+    assert dispatch._route(big) == 'blocked'
+    big.accel = 'dense'
+    with pytest.raises(NotImplementedError, match='brute'):
+        dispatch._route(big)

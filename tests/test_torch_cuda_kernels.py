@@ -5,9 +5,12 @@ Marked `cuda`: each test skips where torch.cuda.is_available() is false
 
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda --noconftest
 
-The cast kernels are built with --fmad=false, so on identical inputs they
-agree with the plain versions bit for bit; the tolerances stated in
-chip_smoke.py (index and occlusion on >= 99.99% of rays) hold with room.
+The cast kernels (dense, closest and blocked) are built with
+--fmad=false, so on identical inputs they agree with the plain versions
+bit for bit; the tolerances stated in chip_smoke.py (index and occlusion
+on >= 99.99% of rays) hold with room.  The blocked kernels run on
+cornell_highpoly(nu=48, nv=24, accel='blocked') (2,560 faces, 5 blocks),
+at 64^2 camera rays and on a random ragged batch.
 
 The path megakernel against its plain twin (the wavefront on the same
 uniforms) at 64x64, with tests/test_fused.py's tolerances: cornell and
@@ -26,11 +29,13 @@ from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.engine import fused
 from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
 from ptina_tpu_torch.film import new_film
-from ptina_tpu_torch.intersect import dense_cast
+from ptina_tpu_torch.intersect import blocked, dense_cast
+from ptina_tpu_torch.utils import cuda_build
 from ptina_tpu_torch.sampling.sobol import sample_dims, sobol_block
 from ptina_tpu_torch.scene import make_scene, LIGHT_POINT
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
-                                    envlight_scene, matball, BENCH_CAMERA)
+                                    cornell_highpoly, envlight_scene, matball,
+                                    BENCH_CAMERA)
 from ptina_tpu_torch.utils.vec import V3
 
 pytestmark = pytest.mark.cuda
@@ -84,13 +89,111 @@ def test_kernels_match_plain(dev, name, n):
                                          scene.face_attr)
     ok = dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef)
     op = dense_cast.cast_any_plain(ro, rd, avoid, tmax, scene.face_coef)
+    ck = dense_cast.cast_closest(ro, rd, avoid, scene.face_coef)
+    cp = dense_cast.cast_closest_plain(ro, rd, avoid, scene.face_coef)
     torch.cuda.synchronize()
-    assert torch.equal(hk.index, hp.index)
-    assert torch.equal(hk.hit, hp.hit)
-    assert torch.equal(hk.t, hp.t)
-    assert torch.equal(hk.u, hp.u) and torch.equal(hk.v, hp.v)
+    _assert_same_hit(hk, hp)
     assert torch.equal(ak, ap)
     assert torch.equal(ok, op)
+    _assert_same_hit(ck, cp)
+    _assert_same_hit(ck, hk)  # the shade kernel's hit, without attributes
+
+
+def _assert_same_hit(a, b):
+    for k in ('hit', 'index', 't', 'u', 'v'):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def _blocked_scene(dev):
+    scene = cornell_highpoly(nu=48, nv=24, accel='blocked', device=dev)
+    assert scene.block_bounds.shape == (5, 8)
+    return scene
+
+
+def _camera_rays(scene, res, dev):
+    ii, jj = pixel_grid(res, res, device=dev)
+    x = (ii.to(torch.float32) + 0.5) / res * 2.0 - 1.0
+    y = (jj.to(torch.float32) + 0.5) / res * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    n = res * res
+    return (V3(*(c.contiguous() for c in (ro.x, ro.y, ro.z))),
+            V3(*(c.contiguous() for c in (rd.x, rd.y, rd.z))),
+            torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.full((n,), 5.0, device=dev))
+
+
+@pytest.mark.parametrize('rays', ['camera_64x64', 'random_1001'])
+def test_blocked_kernels_match_plain(dev, rays):
+    scene = _blocked_scene(dev)
+    if rays == 'camera_64x64':
+        ro, rd, avoid, tmax = _camera_rays(scene, 64, dev)
+    else:
+        ro, rd, avoid, tmax = _rays(1001, scene.face_coef.shape[0], dev)
+    args = (scene.face_coef, scene.face_attr, scene.block_bounds)
+    hk, ak = blocked.blocked_cast_shade(ro, rd, avoid, *args)
+    hp, ap = blocked.blocked_cast_shade_plain(ro, rd, avoid, *args)
+    ok = blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
+                                  scene.block_bounds)
+    op = blocked.blocked_cast_any_plain(ro, rd, avoid, tmax,
+                                        scene.face_coef, scene.block_bounds)
+    torch.cuda.synchronize()
+    assert hp.hit.float().mean().item() > 0.5
+    _assert_same_hit(hk, hp)
+    assert torch.equal(ak, ap)
+    assert torch.equal(ok, op)
+
+
+def test_blocked_build_or_launch_failure_raises(dev, monkeypatch):
+    '''No fallback: a failed nvcc build and a failed launch both raise, and
+    a failed launch counts nothing.'''
+    scene = _blocked_scene(dev)
+    ro, rd, avoid, tmax = _rays(64, scene.face_coef.shape[0], dev)
+    shade = (ro, rd, avoid, scene.face_coef, scene.face_attr,
+             scene.block_bounds)
+    real = cuda_build.build_shared_library
+
+    def broken(stem, main, sources, flags=cuda_build.NVCC_FLAGS):
+        return real(stem + '_broken', main, sources,
+                    flags + ('--no-such-nvcc-option',))
+    monkeypatch.setattr(blocked, 'build_shared_library', broken)
+    blocked.build_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match='nvcc failed'):
+            blocked.blocked_cast_shade(*shade)
+    finally:
+        blocked.build_library.cache_clear()
+    monkeypatch.undo()
+
+    class FailingLib:
+        @staticmethod
+        def ptina_blocked_cast_shade(*_):
+            return 700  # cudaErrorIllegalAddress
+
+        ptina_blocked_cast_any = ptina_blocked_cast_shade
+    monkeypatch.setattr(blocked, 'build_library', lambda: (FailingLib, ''))
+    before = dict(blocked.LAUNCHES)
+    with pytest.raises(RuntimeError, match='blocked_shade_kernel'):
+        blocked.blocked_cast_shade(*shade)
+    with pytest.raises(RuntimeError, match='blocked_any_kernel'):
+        blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
+                                 scene.block_bounds)
+    assert blocked.LAUNCHES == before
+
+
+def test_render_launches_blocked_kernels(dev):
+    '''A blocked scene renders through the wavefront with the blocked
+    casts: one launch of each per bounce, and no other cast or
+    megakernel launch.'''
+    scene = _blocked_scene(dev)
+    assert not fused.fused_eligible(scene)
+    counts = (dense_cast.LAUNCHES, blocked.LAUNCHES, fused.LAUNCHES)
+    before = [dict(c) for c in counts]
+    film = render(scene, new_film(64, 64, device=dev), 0, spp=2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(film).all())
+    grew = [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)]
+    assert grew == [{'shade': 0, 'any': 0, 'closest': 0},
+                    {'blocked_shade': 10, 'blocked_any': 10}, {'path': 0}]
 
 
 def test_render_launches_kernels(dev):
@@ -102,8 +205,9 @@ def test_render_launches_kernels(dev):
         render_sample(scene, film, s, fused=False)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(film).all())
-    for k in before:
+    for k in ('shade', 'any'):
         assert dense_cast.LAUNCHES[k] - before[k] == 5 * 2
+    assert dense_cast.LAUNCHES['closest'] == before['closest']
 
 
 def _texture():

@@ -47,10 +47,10 @@ def test_imports_without_jax_nvcc_or_gpu():
         'import sys\n'
         'import ptina_tpu_torch.engine.path, ptina_tpu_torch.scenes\n'
         'import ptina_tpu_torch.intersect.dispatch\n'
-        'from ptina_tpu_torch.intersect import dense_cast\n'
+        'from ptina_tpu_torch.intersect import blocked, dense_cast\n'
         'from ptina_tpu_torch.engine import fused\n'
-        'assert dense_cast.build_library.cache_info().currsize == 0\n'
-        'assert fused.build_library.cache_info().currsize == 0\n'
+        'for m in (dense_cast, fused, blocked):\n'
+        '    assert m.build_library.cache_info().currsize == 0\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "flax", "ptina_tpu")]\n'
         'assert not bad, bad\n')

@@ -16,7 +16,8 @@ from ptina_tpu import scenes as jscenes
 from ptina_tpu.intersect.plucker import pack_extract
 from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.scene import (scene_from_numpy, make_scene,
-                                   MAX_DENSE_FACES)
+                                   morton_face_order, compute_block_bounds,
+                                   MAX_DENSE_FACES, BLOCK_FACES, MAX_BLOCKS)
 
 torch.set_num_threads(2)
 
@@ -135,15 +136,37 @@ def test_padding_faces_are_zero():
 
 
 def test_dense_limit_and_blocked_raise():
-    verts = np.zeros((3 * (MAX_DENSE_FACES + 1), 8), np.float32)
-    with pytest.raises(NotImplementedError, match='blocked'):
-        make_scene(verts)
-    with pytest.raises(NotImplementedError, match='blocked'):
-        make_scene(np.zeros((3, 8), np.float32), accel='blocked')
+    '''Above MAX_DENSE_FACES, and under accel='blocked', scenes build for
+    the blocked route: Morton-ordered, padded to whole BLOCK_FACES blocks,
+    with block_bounds.  accel='dense' above MAX_DENSE_FACES (the
+    reference's XLA brute route) still raises, and so do scenes beyond
+    the blocked cast's MAX_BLOCKS.'''
+    rng = np.random.RandomState(2)
+    nf = MAX_DENSE_FACES + 1
+    verts = np.zeros((3 * nf, 8), np.float32)
+    verts[:, :3] = rng.randn(3 * nf, 3)
+    scene = make_scene(verts)
+    assert scene.tri_w2b.shape[0] == 17 * BLOCK_FACES
+    assert scene.block_bounds.shape == (17, 8)
+    tri = verts[:, :3].reshape(nf, 3, 3)
+    order = morton_face_order(tri)
+    np.testing.assert_array_equal(scene.tri_pos[:nf].numpy(), tri[order])
+    np.testing.assert_array_equal(scene.block_bounds.numpy(),
+                                  compute_block_bounds(tri[order], nf))
+    small = make_scene(verts[:30], accel='blocked')
+    assert small.tri_w2b.shape[0] == BLOCK_FACES and int(small.nfaces) == 10
+    assert (small.block_bounds[0, :3] <= small.block_bounds[0, 3:6]).all()
+    with pytest.raises(NotImplementedError, match='dense'):
+        make_scene(verts, accel='dense')
     arrays = jax_scene_arrays(jscenes.cornell_box())
-    arrays['accel'] = 'blocked'
-    with pytest.raises(NotImplementedError, match='blocked'):
+    arrays['tri_w2b'] = np.zeros((MAX_DENSE_FACES + 8, 3, 4), np.float32)
+    arrays['accel'] = 'dense'
+    with pytest.raises(NotImplementedError, match='dense'):
         scene_from_numpy(arrays)
+    huge = np.broadcast_to(np.zeros(8, np.float32),
+                           (3 * (BLOCK_FACES * MAX_BLOCKS + 1), 8))
+    with pytest.raises(ValueError, match='blocks'):
+        make_scene(huge)
 
 
 def test_scene_tensors_stay_on_requested_device():
