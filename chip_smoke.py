@@ -10,9 +10,10 @@ The main path has three routes, and the script drives each: the path
 megakernel (one launch per sample, every megakernel-eligible scene), the
 wavefront with the dense casts (two cast launches per bounce), and the
 wavefront with the blocked casts on the big scene (cornell_highpoly,
-101,782 faces); beside them the table-level entry point
-intersect.cast_closest / cast_any.  Phases (each prints its own lines; any
-failure raises and exits non-zero without the final line):
+101,782 faces, whose two casts walk a box tree over 32-face leaves);
+beside them the table-level entry point intersect.cast_closest /
+cast_any.  Phases (each prints its own lines; any failure raises and
+exits non-zero without the final line):
 
   1. device   — require CUDA, print the card's name and power limit,
                 disable TF32.
@@ -57,7 +58,16 @@ failure raises and exits non-zero without the final line):
                 call (CUDA events around calls queued behind a spinning
                 stream), and the per-call time a caller waits (CUDA-event
                 median, launch overhead included); the
-                blocked casts at 262,144 rays on cornell_highpoly.  Per
+                blocked casts at 262,144 rays on cornell_highpoly, with
+                the tree nodes and leaves a ray visits (the kernels' own
+                counters).  Each kernel's bound: the least time the card
+                could take for its work on those inputs, the larger of
+                its FP32 operations (36 a ray-face pair) over 67 TFLOP/s
+                and its bytes over 3.35 TB/s; the pairs are F x rays for
+                the dense casts, the live faces times the paths that cast
+                per bounce for the megakernel (path_trace's lanes), and
+                for the blocked casts the live faces of the leaves a ray
+                must enter (blocked.leaf_pairs).  Per
                 scene and route: the megakernel's and its twin's device
                 time per sample, samples/s of 512^2 renders (32 spp; 8 on
                 cornell_highpoly; median of 3), the share of device time
@@ -65,8 +75,12 @@ failure raises and exits non-zero without the final line):
                 unprofiled wall time, and the host-device
                 synchronisations in one sample.
 
-The last two lines are a {"kernels": [...]} JSON object and
-{"ok": true, "device": {...}}.  Imports nothing of JAX or ptina_tpu.
+The last two lines are a {"kernels": [...]} JSON object (per kernel:
+launches on the main path and per sample, its largest error against its
+plain version, its time, its plain version's time, its bound and what
+sets it, and library_ms, null: no single PyTorch call computes a ray-face
+closest hit, occlusion or path) and {"ok": true, "device": {...}}.
+Imports nothing of JAX or ptina_tpu.
 '''
 
 import json
@@ -117,6 +131,14 @@ ATTR_ATOL = 1e-4
 # paths that must agree, and per scene (absolute 1e-3 and means within
 # 2e-3 relative) or (2e-2 relative to max(|ref|, 0.05), means within 1e-2)
 PATH_AGREE = 0.95
+# the bound's peaks (NVIDIA's H100 SXM data sheet, at a 700 W limit):
+# FP32 outside the tensor cores, and HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations of one ray-face pair (csrc/plucker.cuh:face_hit): U and
+# V 6 products + 5 sums each, B 3 + 2, An 3 + 3, W 2, An * B 1; the
+# reciprocal and product of t only for valid pairs, not counted
+FLOPS_PER_PAIR = 36
 KERNEL_SOURCE = 'ptina_tpu_torch/csrc/dense_cast.cu'
 PATH_SOURCE = 'ptina_tpu_torch/csrc/fused_path.cu'
 BLOCKED_SOURCE = 'ptina_tpu_torch/csrc/blocked_cast.cu'
@@ -159,6 +181,14 @@ def card_line():
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _tree(scene):
+    '''The box tree of a blocked scene, as one phrase.'''
+    p = scene.node_bounds.shape[0] // 2
+    leaves = -(-scene.face_coef.shape[0] // blocked.LEAF_FACES)
+    return (f'a box tree of {leaves} leaves of {blocked.LEAF_FACES} faces '
+            f'(depth {p.bit_length() - 1})')
 
 
 def phase_device():
@@ -313,13 +343,12 @@ def _compare(name, scene, ro, rd, avoid, tmax):
 
 def _compare_blocked(name, scene, ro, rd, avoid, tmax):
     '''The two blocked casts against their plain versions.'''
-    tables = (scene.face_coef, scene.face_attr, scene.block_bounds)
-    shade = (blocked.blocked_cast_shade(ro, rd, avoid, *tables),
-             blocked.blocked_cast_shade_plain(ro, rd, avoid, *tables))
-    occ = (blocked.blocked_cast_any(ro, rd, avoid, tmax, tables[0],
-                                    tables[2]),
-           blocked.blocked_cast_any_plain(ro, rd, avoid, tmax, tables[0],
-                                          tables[2]))
+    c, at, bb, nb = (scene.face_coef, scene.face_attr, scene.block_bounds,
+                     scene.node_bounds)
+    shade = (blocked.blocked_cast_shade(ro, rd, avoid, c, at, bb, nb),
+             blocked.blocked_cast_shade_plain(ro, rd, avoid, c, at, bb, nb))
+    occ = (blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb, nb),
+           blocked.blocked_cast_any_plain(ro, rd, avoid, tmax, c, bb, nb))
     torch.cuda.synchronize()
     errs = _hold_casts(name, ro.x.shape[0], shade, occ)
     return {'blocked_' + k: e for k, e in errs.items()}
@@ -557,7 +586,8 @@ def _oracle_agreement(scene, n=32):
         V3(t(ron[:, 0]), t(ron[:, 1]), t(ron[:, 2])),
         V3(t(dn[:, 0]), t(dn[:, 1]), t(dn[:, 2])),
         torch.full((n,), -1, dtype=torch.int32, device=DEV),
-        scene.face_coef, scene.face_attr, scene.block_bounds)
+        scene.face_coef, scene.face_attr, scene.block_bounds,
+        scene.node_bounds)
     got_t = hit.t.cpu().numpy()
     tp = scene.tri_pos[:int(scene.nfaces)].cpu().numpy().astype(np.float64)
     v0, e1, e2 = tp[:, 0], tp[:, 1] - tp[:, 0], tp[:, 2] - tp[:, 0]
@@ -590,7 +620,7 @@ def phase_capacity():
     scene = cornell_highpoly(nu=640, nv=240, device=DEV)
     f, nb = scene.face_coef.shape[0], scene.block_bounds.shape[0]
     print(f'[capacity] cornell_highpoly(nu=640, nv=240): {int(scene.nfaces)} '
-          f'faces, {f} padded, {nb} blocks, built in '
+          f'faces, {f} padded, {nb} blocks, {_tree(scene)}, built in '
           f'{time.perf_counter() - t0:.2f} s')
     agree = _oracle_agreement(scene)
     print(f'[capacity] 32 rays against the float64 oracle: {agree}/32 agree '
@@ -775,17 +805,113 @@ def _kernel_times(scene, rays):
 
 def _blocked_times(scene, rays):
     ro, rd, avoid, tmax = rays
-    c, at, bb = scene.face_coef, scene.face_attr, scene.block_bounds
+    tables = (scene.face_coef, scene.face_attr, scene.block_bounds,
+              scene.node_bounds)
+    c, _, bb, nb = tables
     return _time_calls({
         'blocked_shade': (
-            lambda: blocked.blocked_cast_shade(ro, rd, avoid, c, at, bb),
-            lambda: blocked.blocked_cast_shade_plain(ro, rd, avoid, c, at,
-                                                     bb)),
+            lambda: blocked.blocked_cast_shade(ro, rd, avoid, *tables),
+            lambda: blocked.blocked_cast_shade_plain(ro, rd, avoid,
+                                                     *tables)),
         'blocked_any': (
-            lambda: blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb),
+            lambda: blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb, nb),
             lambda: blocked.blocked_cast_any_plain(ro, rd, avoid, tmax, c,
-                                                   bb)),
+                                                   bb, nb)),
     }, plain_reps=1)
+
+
+def _bound(flops, nbytes):
+    '''(bound ms, 'operations' or 'bytes'): the larger of the FP32
+    operations over the FP32 peak and the bytes over the memory rate.'''
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms \
+        else (bytes_ms, 'bytes')
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _cast_bounds(scene, rays):
+    '''{dense kernel: (bound ms, bound_by)} at these rays: every ray
+    against every live face, each input read once, each output written
+    once.'''
+    ro, rd, avoid, tmax = rays
+    n, nf = ro.x.shape[0], int(scene.nfaces)
+    flops = FLOPS_PER_PAIR * n * nf
+    rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
+    coef_b = 64 * nf
+    hit_b = n * (4 + 4 + 1 + 4 + 4)  # t, index, hit, u, v
+    return {'shade': _bound(flops, rays_b + coef_b + 72 * nf + hit_b
+                            + 24 * n),
+            'any': _bound(flops, rays_b + _nbytes(tmax) + coef_b + n),
+            'closest': _bound(flops, rays_b + coef_b + hit_b)}
+
+
+def _blocked_bounds(card, scene, rays):
+    '''{blocked kernel: (bound ms, bound_by)} at these rays, from the
+    pairs they need (blocked.leaf_pairs, the kernels' slab test in torch):
+    the closest cast the live faces of every leaf a ray enters at or
+    before its hit; the occlusion cast, for a ray that is occluded, its
+    nearest occluder's leaf, and for a clear one every leaf it enters
+    before min(tmax, INF).  Prints them beside the tree nodes and leaves
+    the kernels visit (their own counters).'''
+    ro, rd, avoid, tmax = rays
+    tables = (scene.face_coef, scene.face_attr, scene.block_bounds,
+              scene.node_bounds)
+    c, at, bb, nb = tables
+    nf, n = int(scene.nfaces), ro.x.shape[0]
+    hit, _ = blocked.blocked_cast_shade(ro, rd, avoid, *tables)
+    occ = blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb, nb)
+    inf = torch.full_like(hit.t, float('inf'))
+    shade_pairs = blocked.leaf_pairs(ro, rd, nb, nf,
+                                     torch.where(hit.hit, hit.t, inf), True)
+    leaf = torch.clamp_min(hit.index, 0) // blocked.LEAF_FACES
+    leaf_live = torch.clamp(nf - blocked.LEAF_FACES * leaf, 0,
+                            blocked.LEAF_FACES)
+    any_pairs = torch.where(
+        occ, leaf_live.to(torch.int64),
+        blocked.leaf_pairs(ro, rd, nb, nf, torch.clamp_max(tmax, 1e6),
+                           False))
+    vis = blocked.blocked_cast_visits(ro, rd, avoid, tmax, *tables)
+    rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
+    tree_b = _nbytes(nb)
+    out = {}
+    for k, pairs, nbytes, v in (
+            ('blocked_shade', shade_pairs,
+             rays_b + 136 * nf + tree_b + n * (17 + 24), vis[0]),
+            ('blocked_any', any_pairs,
+             rays_b + _nbytes(tmax) + 64 * nf + tree_b + n, vis[1])):
+        total = int(pairs.sum())
+        out[k] = _bound(FLOPS_PER_PAIR * total, nbytes)
+        v = v.float().mean(0)
+        print(f'[bound] {card} | {k:<13} cornell_highpoly {n} rays: needs '
+              f'{total / n:.2f} pairs a ray ({total} in all) -> '
+              f'{out[k][0]:.5f} ms by {out[k][1]}; the kernel visits '
+              f'{v[0].item():.2f} inner nodes and {v[1].item():.3f} '
+              f'leaves a ray ({blocked.LEAF_FACES * v[1].item():.1f} face '
+              f'slots)')
+    return out
+
+
+def _path_bound(card, name, scene):
+    '''(bound ms, bound_by) of the megakernel's sample 9 at 512^2: the
+    live faces times the closest and shadow casts its paths make per
+    bounce (path_trace's lanes on the same uniforms), and its reads of
+    the face and texture tables and its radiance rows.'''
+    lanes = []
+    fused.fused_trace_primary_plain(scene, sobol_block(9, DIMS), RES, RES,
+                                    lanes=lanes)
+    alive = [int(a) for a, _ in lanes]
+    shadow = [int(s) for _, s in lanes]
+    nf = int(scene.nfaces)
+    flops = FLOPS_PER_PAIR * nf * (sum(alive) + sum(shadow))
+    nbytes = 136 * nf + _nbytes(scene.textures.data) + 12 * N_FULL
+    b = _bound(flops, nbytes)
+    print(f'[bound] {card} | path_kernel {name} {RES}x{RES}: paths per bounce '
+          f'{alive}, shadow rays {shadow}, {nf} faces -> {b[0]:.5f} ms by '
+          f'{b[1]}')
+    return b
 
 
 def _profile_share(scene, use_fused, names=None):
@@ -911,15 +1037,19 @@ def _print_kernel_times(card, name, n, times):
 
 def phase_timings(card, scenes, tables, highpoly):
     rng = np.random.RandomState(7)
-    kt = {}
+    kt, bounds = {}, {}
     for name in ('cornell', 'cornell_monkey'):
-        kt[name] = _kernel_times(tables[name],
-                                 _rays(rng, tables[name], N_FULL))
+        rays = _rays(rng, tables[name], N_FULL)
+        kt[name] = _kernel_times(tables[name], rays)
         _print_kernel_times(card, name, N_FULL, kt[name])
-    kt['cornell_highpoly'] = _blocked_times(highpoly,
-                                            _rays(rng, highpoly, N_FULL))
+        bounds[name] = _cast_bounds(tables[name], rays)
+    rays = _rays(rng, highpoly, N_FULL)
+    kt['cornell_highpoly'] = _blocked_times(highpoly, rays)
     _print_kernel_times(card, 'cornell_highpoly', N_FULL,
                         kt['cornell_highpoly'])
+    bounds['cornell_highpoly'] = _blocked_bounds(card, highpoly, rays)
+    bounds['path'] = {name: _path_bound(card, name, scene)
+                      for name, scene in scenes.items()}
     pk = {}
     for name, scene in scenes.items():
         pk[name] = _path_times(scene)
@@ -938,7 +1068,7 @@ def phase_timings(card, scenes, tables, highpoly):
                  HIGHPOLY_SPP,
                  lambda f: render(highpoly, f, 0, spp=HIGHPOLY_SPP), False,
                  ('blocked_shade_kernel', 'blocked_any_kernel'))
-    return kt, pk
+    return kt, pk, bounds
 
 
 def main():
@@ -951,41 +1081,57 @@ def main():
     highpoly = cornell_highpoly(device=DEV)
     print(f'[scene] cornell_highpoly: {int(highpoly.nfaces)} faces, '
           f'{highpoly.face_coef.shape[0]} padded, '
-          f'{highpoly.block_bounds.shape[0]} blocks, built in '
-          f'{time.perf_counter() - t0:.2f} s')
+          f'{highpoly.block_bounds.shape[0]} blocks, {_tree(highpoly)}, '
+          f'built in {time.perf_counter() - t0:.2f} s')
     errs = phase_kernels(tables, highpoly)
     errs['path'] = {'max_abs_err': phase_megakernel(scenes)}
 
     counts = phase_main(scenes, highpoly)
     phase_capacity()
     phase_golden(scenes)
-    kt, pk = phase_timings(card, scenes, tables, highpoly)
+    kt, pk, bounds = phase_timings(card, scenes, tables, highpoly)
 
-    def entry(k, source, launches, times, **extra):
+    # launches per sample of each kernel's route: the dense casts on the
+    # wavefront (fused=False) scenes, the megakernel on the five, the
+    # blocked casts on cornell_highpoly; the closest kernel is table level
+    per_sample = {
+        'shade': counts['wavefront']['shade'] / (SPP * len(WAVEFRONT_SCENES)),
+        'any': counts['wavefront']['any'] / (SPP * len(WAVEFRONT_SCENES)),
+        'closest': 0,
+        'path': counts['megakernel']['path'] / (SPP * len(SCENES)),
+        'blocked_shade': counts['blocked']['blocked_shade'] / HIGHPOLY_SPP,
+        'blocked_any': counts['blocked']['blocked_any'] / HIGHPOLY_SPP}
+
+    def entry(k, source, launches, ms, plain_ms, call_ms, bound, **extra):
         return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
                 'replaces': REPLACES[k], 'launches': launches,
-                **errs[k], 'ms': times[k][0],
-                'plain_ms': times[k][1], 'call_ms': times[k][2],
+                'launches_per_sample': per_sample[k], **errs[k], 'ms': ms,
+                'plain_ms': plain_ms, 'bound_ms': bound[0],
+                'bound_by': bound[1], 'library_ms': None, 'call_ms': call_ms,
                 'ptxas': ptxas.get(f'{k}_kernel', ''), **extra}
-    kernels = [entry(k, KERNEL_SOURCE, counts['wavefront'][k], kt['cornell'],
-                     ms_monkey=kt['cornell_monkey'][k][0],
-                     plain_ms_monkey=kt['cornell_monkey'][k][1],
-                     call_ms_monkey=kt['cornell_monkey'][k][2])
+
+    def cast_entry(k, source, launches, scene, **extra):
+        return entry(k, source, launches, *kt[scene][k][:3],
+                     bounds[scene][k], **extra)
+    kernels = [cast_entry(k, KERNEL_SOURCE, counts['wavefront'][k],
+                          'cornell', ms_monkey=kt['cornell_monkey'][k][0],
+                          plain_ms_monkey=kt['cornell_monkey'][k][1],
+                          call_ms_monkey=kt['cornell_monkey'][k][2],
+                          bound_ms_monkey=bounds['cornell_monkey'][k][0])
                for k in ('shade', 'any')]
-    kernels.append({
-        'name': 'path_kernel', 'route': 'cuda', 'source': PATH_SOURCE,
-        'replaces': REPLACES['path'], 'launches': counts['megakernel']['path'],
-        **errs['path'], 'ms': pk['cornell'][0],
-        'plain_ms': pk['cornell'][1], 'call_ms': pk['cornell'][2],
-        'ms_by_scene': {k: v[0] for k, v in pk.items()},
-        'plain_ms_by_scene': {k: v[1] for k, v in pk.items()},
-        'ptxas': ptxas.get('path_kernel', '')})
-    kernels.append(entry('closest', KERNEL_SOURCE,
-                         counts['table']['closest'], kt['cornell'],
-                         ms_monkey=kt['cornell_monkey']['closest'][0],
-                         plain_ms_monkey=kt['cornell_monkey']['closest'][1]))
-    kernels += [entry(k, BLOCKED_SOURCE, counts['blocked'][k],
-                      kt['cornell_highpoly'])
+    kernels.append(entry(
+        'path', PATH_SOURCE, counts['megakernel']['path'], *pk['cornell'],
+        bounds['path']['cornell'],
+        ms_by_scene={k: v[0] for k, v in pk.items()},
+        plain_ms_by_scene={k: v[1] for k, v in pk.items()},
+        bound_ms_by_scene={k: v[0] for k, v in bounds['path'].items()}))
+    kernels.append(cast_entry(
+        'closest', KERNEL_SOURCE, counts['table']['closest'], 'cornell',
+        ms_monkey=kt['cornell_monkey']['closest'][0],
+        plain_ms_monkey=kt['cornell_monkey']['closest'][1],
+        bound_ms_monkey=bounds['cornell_monkey']['closest'][0]))
+    kernels += [cast_entry(k, BLOCKED_SOURCE, counts['blocked'][k],
+                           'cornell_highpoly')
                 for k in ('blocked_shade', 'blocked_any')]
     print(card)
     print(json.dumps({'kernels': kernels}))

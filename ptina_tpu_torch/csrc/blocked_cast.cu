@@ -15,32 +15,41 @@
 //
 // The scene's faces are Morton-ordered (scene.py) and block b is rows
 // b * 512 ... b * 512 + 511 of the face_coef [F, 16] / face_attr [F, 18]
-// tables, with its box in block_bounds [nb, 8] (lo.xyz, hi.xyz, 0, 0;
-// padding blocks inverted).  The contract is brute's winners, not the TPU
-// kernels' tiles, and the packed key is BLOCK-LOCAL, as in the reference:
+// tables.  The contract is brute's winners, not the TPU kernels' tiles,
+// and the packed key is BLOCK-LOCAL, as in the reference:
 //   key = (bits(t) & ~2047) | (fid - 512 * blk), minimum over (key, blk)
 //   taken lexicographically, the winner's id blk * 512 + (key & 2047).
 // So t sits on the 2^-12 grid at every scene size, and an exact-key tie
 // across blocks goes to the lower block id (the reference: to its visit
 // order).
 //
-// What bounds it on this card: the pair tests, ~25 FP32 ops per (ray,
-// face) pair as in dense_cast.cu, times the blocks a ray cannot cull; on
-// the 101,888-face scene each ray meets 199 boxes and enters a few of
-// them.  The face table (6.5 MB) lives in L2.
+// The kernels walk the scene's box tree, nodes [2P, 8] (scene.py:
+// compute_node_bounds): an implicit complete binary tree in heap layout
+// over leaves of 32 consecutive faces, node k with children 2k and 2k + 1,
+// leaf l at node P + l and inside block l / 16; rows (lo.xyz, hi.xyz, 0,
+// 0), padding leaves and nodes inverted.
 //
-// What the design does about it: one thread per ray and no ray sort, tiles,
-// candidate table or DMA ring.  Each thread walks the blocks in index
-// order; a conservative slab test of its ray against the block's box (with
-// the reference's relative margins, blocked.py:287-296) gives an entry
-// bound, and the block's 512 faces are tested only when the box is ahead
-// of the ray and its entry, floored to the key's t grid, is not beyond the
-// ray's running best (the reference's gate, blocked.py:445-451).  The
-// threads of a warp walk the blocks in step, so a block one of them enters
-// is read by all as broadcast loads through L1.  The occlusion kernel skips
-// blocks whose entry is at or beyond tmax and stops at its first hit.  The
-// file is built with --fmad=false (intersect/blocked.py), so the pair
-// tests round as the plain torch version does.
+// What bounds it on this card: the pair tests, 36 FP32 operations per
+// (ray, face) pair (ptina::face_hit), over the faces of the leaves whose
+// box a ray enters before its hit; the face table (6.5 MB at 101,888
+// faces) and the tree (256 KB) live in L2.  With 512-face blocks in index
+// order a ray tested ~4,000 faces, most of them sphere faces that shared a
+// block with a wall spanning the whole scene, and a warp the union of its
+// rays' blocks.
+//
+// What the design does about it: one thread per ray walks the tree
+// depth-first with a 17-entry stack (depth <= 16 at MAX_BLOCKS * 16
+// leaves), the nearer child first.  A conservative slab test of each box
+// (the reference's relative margins, blocked.py:287-296) gives an entry
+// bound; the closest-hit kernel prunes a node whose entry, floored to the
+// key's t grid, is strictly beyond the running best (the reference's
+// gate, blocked.py:445-451), so the nearest-first order gives the early
+// exit that index order could not.  The result is a lexicographic minimum,
+// so it does not depend on the visit order.  The occlusion kernel prunes
+// entries at or beyond tmax and stops at its first occluder.  No shared
+// memory and no barrier: faces and boxes are read through the read-only
+// cache.  The file is built with --fmad=false (intersect/blocked.py), so
+// the pair tests round as the plain torch version does.
 #include <cuda_runtime.h>
 
 #include "plucker.cuh"
@@ -49,31 +58,38 @@ namespace {
 
 constexpr int kBlock = 128;        // rays per CUDA block
 constexpr int kBlockFaces = 512;   // scene.BLOCK_FACES
+constexpr int kLeafFaces = 32;     // blocked.LEAF_FACES
+constexpr int kLeavesPerBlock = kBlockFaces / kLeafFaces;
 constexpr int kLocalMask = 2047;   // plucker.KEY_FID_MASK: the block-local id
+constexpr int kStack = 17;         // blocked.MAX_TREE_DEPTH + 1
 
-// Conservative slab test of the ray against one box bb = (lo.xyz, hi.xyz):
-// false when no point of the box lies ahead of the origin; else *entry is a
-// lower bound on the t of any hit inside the box.  The bounds carry the
-// reference's relative margins, so rounding cannot drop a hit whose t sits
-// on a box face (the cornell walls lie on their blocks' planes).  A zero
-// direction component is decided by the origin alone, so no 0 * inf NaN
-// arises (a parked ray points along +z from the origin).
+// Conservative slab test of the ray against node k's box (two float4:
+// lo.xyz hi.x, hi.yz 0 0): false when no point of the box lies ahead of
+// the origin; else *entry is a lower bound on the t of any hit inside the
+// box.  The bounds carry the reference's relative margins, so rounding
+// cannot drop a hit whose t sits on a box face (the cornell walls lie on
+// their leaves' planes).  A zero direction component is decided by the
+// origin alone, so no 0 * inf NaN arises (a parked ray points along +z
+// from the origin).  intersect/blocked.py:box_entries is its torch twin.
 __device__ __forceinline__ bool box_entry(const ptina::Ray& r,
-                                          const float* __restrict__ bb,
-                                          float* entry) {
+                                          const float4* __restrict__ nodes,
+                                          int k, float* entry) {
+  const float4 a = __ldg(nodes + 2 * k);
+  const float4 b = __ldg(nodes + 2 * k + 1);
+  const float lo[3] = {a.x, a.y, a.z};
+  const float hi[3] = {a.w, b.x, b.y};
   const float o[3] = {r.ox, r.oy, r.oz};
   const float d[3] = {r.dx, r.dy, r.dz};
   float near = -INFINITY, far = INFINITY;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float lo = __ldg(bb + a), hi = __ldg(bb + 3 + a);
-    if (!(lo <= hi)) return false;  // a padding block's inverted box
-    if (d[a] == 0.f) {
-      if (o[a] < lo || o[a] > hi) return false;
+  for (int ax = 0; ax < 3; ++ax) {
+    if (!(lo[ax] <= hi[ax])) return false;  // a padding node's inverted box
+    if (d[ax] == 0.f) {
+      if (o[ax] < lo[ax] || o[ax] > hi[ax]) return false;
       continue;
     }
-    const float t1 = (lo - o[a]) / d[a];
-    const float t2 = (hi - o[a]) / d[a];
+    const float t1 = (lo[ax] - o[ax]) / d[ax];
+    const float t2 = (hi[ax] - o[ax]) / d[ax];
     near = fmaxf(near, fminf(t1, t2));
     far = fminf(far, fmaxf(t1, t2));
   }
@@ -82,6 +98,60 @@ __device__ __forceinline__ bool box_entry(const ptina::Ray& r,
   if (!(far > 0.f && near <= far && isfinite(near))) return false;
   *entry = fmaxf(near, 0.f);
   return true;
+}
+
+// Depth-first walk of the box tree, nearer child first.  pruned(entry)
+// says whether a box entered at `entry` can still matter; it is asked
+// again when a deferred node is popped, since the ray's state has moved
+// on.  leaf(l) tests leaf l's faces and returns true to end the walk.
+// visits, when given, receives (inner nodes visited, leaves tested).
+template <class Pruned, class Leaf>
+__device__ __forceinline__ void walk_tree(const ptina::Ray& r,
+                                          const float4* __restrict__ nodes,
+                                          int p, Pruned pruned, Leaf leaf,
+                                          int2* visits) {
+  int stack_node[kStack];
+  float stack_entry[kStack];
+  int sp = 0;
+  int inner = 0, leaves = 0;
+  int node = 1;
+  float e;
+  if (box_entry(r, nodes, node, &e) && !pruned(e)) {
+    for (;;) {
+      if (node < p) {
+        ++inner;
+        const int c = 2 * node;
+        float e0, e1;
+        const bool h0 = box_entry(r, nodes, c, &e0) && !pruned(e0);
+        const bool h1 = box_entry(r, nodes, c + 1, &e1) && !pruned(e1);
+        if (h0 && h1) {
+          const bool right_first = e1 < e0;  // a tie goes left first
+          stack_node[sp] = right_first ? c : c + 1;
+          stack_entry[sp] = right_first ? e0 : e1;
+          ++sp;
+          node = right_first ? c + 1 : c;
+          continue;
+        }
+        if (h0 || h1) {
+          node = h0 ? c : c + 1;
+          continue;
+        }
+      } else {
+        ++leaves;
+        if (leaf(node - p)) break;
+      }
+      node = 0;  // pop the last deferred node the gate still lets through
+      while (sp > 0) {
+        --sp;
+        if (!pruned(stack_entry[sp])) {
+          node = stack_node[sp];
+          break;
+        }
+      }
+      if (node == 0) break;
+    }
+  }
+  if (visits) *visits = make_int2(inner, leaves);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -94,8 +164,8 @@ blocked_shade_kernel(const float* __restrict__ ox,
                      const int* __restrict__ avoid,
                      const float4* __restrict__ coef,
                      const float* __restrict__ attr,
-                     const float* __restrict__ bounds, int n, int f, int nb,
-                     ptina::HitOut out) {
+                     const float4* __restrict__ nodes, int n, int f, int p,
+                     ptina::HitOut out, int2* __restrict__ visits) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
   const ptina::Ray r = ptina::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i],
@@ -104,32 +174,40 @@ blocked_shade_kernel(const float* __restrict__ ox,
   int best = ptina::kKeyMiss;
   int best_blk = -1;
 
-  for (int b = 0; b < nb; ++b) {
-    float entry;
-    if (!box_entry(r, bounds + 8 * b, &entry)) continue;
-    // skip a block whose every hit is strictly beyond the running best on
-    // the key's t grid (KEY_MISS keeps every block in play)
-    if ((__float_as_int(entry) & ~kLocalMask) > (best & ~kLocalMask))
-      continue;
-    const int base = b * kBlockFaces;
-    const int cnt = min(kBlockFaces, f - base);
-    const int local_av = av - base;  // the global avoid, block-local
-    const float4* c = coef + 4 * base;
-    int kb = ptina::kKeyMiss;
-    for (int j = 0; j < cnt; ++j) {
-      float t;
-      const bool valid = ptina::face_hit(r, __ldg(c + 4 * j),
-                                         __ldg(c + 4 * j + 1),
-                                         __ldg(c + 4 * j + 2),
-                                         __ldg(c + 4 * j + 3), &t);
-      if (valid && j != local_av && t < ptina::kInf)
-        kb = min(kb, ptina::pack_key(t, j, kLocalMask));
-    }
-    if (kb < best) {  // strict: an equal key keeps the lower block
-      best = kb;
-      best_blk = b;
-    }
-  }
+  walk_tree(
+      r, nodes, p,
+      // a box whose every hit is strictly beyond the running best on the
+      // key's t grid (KEY_MISS keeps every box in play)
+      [&](float entry) {
+        return (__float_as_int(entry) & ~kLocalMask) > (best & ~kLocalMask);
+      },
+      [&](int l) {
+        const int base = l * kLeafFaces;
+        const int cnt = min(kLeafFaces, f - base);
+        const int blk = l / kLeavesPerBlock;
+        const int local0 = base - blk * kBlockFaces;  // block-local ids
+        const float4* c = coef + 4 * base;
+        int kl = ptina::kKeyMiss;
+        for (int j = 0; j < cnt; ++j) {
+          float t;
+          const bool valid = ptina::face_hit(r, __ldg(c + 4 * j),
+                                             __ldg(c + 4 * j + 1),
+                                             __ldg(c + 4 * j + 2),
+                                             __ldg(c + 4 * j + 3), &t);
+          // base + j != av: the global avoid, i.e. local0 + j against the
+          // avoid localised by the block
+          if (valid && base + j != av && t < ptina::kInf)
+            kl = min(kl, ptina::pack_key(t, local0 + j, kLocalMask));
+        }
+        // the (key, block) minimum: an equal key keeps the lower block
+        if (kl < best || (kl == best && blk < best_blk)) {
+          best = kl;
+          best_blk = blk;
+        }
+        return false;
+      },
+      visits ? visits + i : nullptr);
+
   if (best == ptina::kKeyMiss) {
     ptina::store_miss<true>(out, i, n);
     return;
@@ -146,34 +224,38 @@ blocked_any_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const int* __restrict__ avoid,
                    const float* __restrict__ tmax,
                    const float4* __restrict__ coef,
-                   const float* __restrict__ bounds, int n, int f, int nb,
-                   bool* __restrict__ occ_out) {
+                   const float4* __restrict__ nodes, int n, int f, int p,
+                   bool* __restrict__ occ_out, int2* __restrict__ visits) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
   const ptina::Ray r = ptina::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i],
                                        dz[i]);
   const int av = avoid[i];
   // t < min(tmax, INF) == (t < INF && t < tmax), also for a NaN tmax; a
-  // parked ray (tmax 0) skips every block, since entries are >= 0
+  // parked ray (tmax 0) leaves at the root, since entries are >= 0
   const float tm = tmax[i];
   bool occ = false;
 
-  for (int b = 0; b < nb && !occ; ++b) {
-    float entry;
-    if (!box_entry(r, bounds + 8 * b, &entry) || entry >= tm) continue;
-    const int base = b * kBlockFaces;
-    const int cnt = min(kBlockFaces, f - base);
-    const int local_av = av - base;
-    const float4* c = coef + 4 * base;
-    for (int j = 0; j < cnt && !occ; ++j) {
-      float t;
-      const bool valid = ptina::face_hit(r, __ldg(c + 4 * j),
-                                         __ldg(c + 4 * j + 1),
-                                         __ldg(c + 4 * j + 2),
-                                         __ldg(c + 4 * j + 3), &t);
-      occ = valid && j != local_av && t < ptina::kInf && t < tm;
-    }
-  }
+  walk_tree(
+      r, nodes, p, [&](float entry) { return entry >= tm; },
+      [&](int l) {
+        const int base = l * kLeafFaces;
+        const int cnt = min(kLeafFaces, f - base);
+        const float4* c = coef + 4 * base;
+        for (int j = 0; j < cnt; ++j) {
+          float t;
+          const bool valid = ptina::face_hit(r, __ldg(c + 4 * j),
+                                             __ldg(c + 4 * j + 1),
+                                             __ldg(c + 4 * j + 2),
+                                             __ldg(c + 4 * j + 3), &t);
+          if (valid && base + j != av && t < ptina::kInf && t < tm) {
+            occ = true;
+            return true;
+          }
+        }
+        return false;
+      },
+      visits ? visits + i : nullptr);
   occ_out[i] = occ;
 }
 
@@ -184,21 +266,24 @@ inline int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
 extern "C" {
 
 // Closest hit + attributes over a blocked table.  Rays are six [n] f32 rows;
-// coef [f, 16] (16-byte aligned), attr [f, 18], bounds [nb, 8] with
-// nb = ceil(f / 512); outputs t/u/v [n] f32, idx [n] i32, hit [n] bool,
-// attrs [6, n] f32.  Returns cudaGetLastError() after the launch.
+// coef [f, 16] and nodes [2p, 8] (both 16-byte aligned), attr [f, 18];
+// outputs t/u/v [n] f32, idx [n] i32, hit [n] bool, attrs [6, n] f32;
+// visits: null, or [n, 2] i32 for the traversal counters.  Returns
+// cudaGetLastError() after the launch.
 int ptina_blocked_cast_shade(const float* ox, const float* oy,
                              const float* oz, const float* dx,
                              const float* dy, const float* dz,
                              const int* avoid, const float* coef,
-                             const float* attr, const float* bounds, int n,
-                             int f, int nb, float* t, int* idx, bool* hit,
-                             float* u, float* v, float* attrs,
+                             const float* attr, const float* nodes, int n,
+                             int f, int p, float* t, int* idx, bool* hit,
+                             float* u, float* v, float* attrs, int* visits,
                              void* stream) {
   blocked_shade_kernel<<<grid_for(n), kBlock, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, avoid, reinterpret_cast<const float4*>(coef),
-      attr, bounds, n, f, nb, ptina::HitOut{t, idx, hit, u, v, attrs});
+      attr, reinterpret_cast<const float4*>(nodes), n, f, p,
+      ptina::HitOut{t, idx, hit, u, v, attrs},
+      reinterpret_cast<int2*>(visits));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,12 +292,15 @@ int ptina_blocked_cast_shade(const float* ox, const float* oy,
 int ptina_blocked_cast_any(const float* ox, const float* oy, const float* oz,
                            const float* dx, const float* dy, const float* dz,
                            const int* avoid, const float* tmax,
-                           const float* coef, const float* bounds, int n,
-                           int f, int nb, bool* occ, void* stream) {
+                           const float* coef, const float* nodes, int n,
+                           int f, int p, bool* occ, int* visits,
+                           void* stream) {
   blocked_any_kernel<<<grid_for(n), kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, avoid, tmax,
-      reinterpret_cast<const float4*>(coef), bounds, n, f, nb, occ);
+      reinterpret_cast<const float4*>(coef),
+      reinterpret_cast<const float4*>(nodes), n, f, p, occ,
+      reinterpret_cast<int2*>(visits));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -191,10 +191,11 @@ def _check_device(scene):
 
 
 def fused_trace_primary_plain(scene, pt, nx, ny, x0=0, y0=0, fnx=None,
-                              fny=None):
+                              fny=None, lanes=None):
     '''Plain twin of the primary head: the (nx, ny) film tile at offset
     (x0, y0) of an (fnx, fny) film, uniforms remainder(pt + rotation, 1)
-    exactly as sample_dims makes them, then path_trace.'''
+    exactly as sample_dims makes them, then path_trace (lanes: its
+    per-bounce cast counts).'''
     from ptina_tpu_torch.engine.path import path_trace, pixel_grid
     fnx = nx if fnx is None else fnx
     fny = ny if fny is None else fny
@@ -206,7 +207,7 @@ def fused_trace_primary_plain(scene, pt, nx, ny, x0=0, y0=0, fnx=None,
     x = (ii.to(torch.float32) + u[0]) / fnx * 2.0 - 1.0
     y = (jj.to(torch.float32) + u[1]) / fny * 2.0 - 1.0
     ro, rd = camera_rays(scene.cam_v2w, x, y)
-    return path_trace(scene, ro, rd, u)
+    return path_trace(scene, ro, rd, u, lanes=lanes)
 
 
 def fused_trace_primary(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):

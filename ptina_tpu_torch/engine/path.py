@@ -69,9 +69,10 @@ def _any3(v):
     return (v.x > 0.0) | (v.y > 0.0) | (v.z > 0.0)
 
 
-def _bounce(scene, carry, u, model='disney'):
+def _bounce(scene, carry, u, model='disney', lanes=None):
     '''One wavefront bounce.  carry: (ro, rd, throughput, result,
-    last_brdf_pdf, avoid, alive); u: this bounce's [6, N] uniforms.'''
+    last_brdf_pdf, avoid, alive); u: this bounce's [6, N] uniforms;
+    lanes: path_trace's.'''
     ro, rd, throughput, result, last_brdf_pdf, avoid, alive = carry
     rd = vnormalize(rd)
     hit, hitpos, normal, sign, material = _cast_and_shade(scene, ro, rd,
@@ -104,6 +105,8 @@ def _bounce(scene, carry, u, model='disney'):
     mis2 = power_heuristic(li['pdf'], brdf_pdf)
     nee = li['color'] * brdf_clr * (mis2 * vdot_or_zero(normal, li['dir']))
     nee_ok = live & ~occ & _any3(li['color'])
+    if lanes is not None:
+        lanes.append((alive.sum(), (live & _any3(li['color'])).sum()))
     result = result + vwhere(nee_ok, throughput * nee, 0.0)
 
     # BSDF bounce.  Dead lanes are PARKED on the degenerate ray at the
@@ -122,9 +125,12 @@ def _bounce(scene, carry, u, model='disney'):
     return (ro, rd, throughput, result, last_brdf_pdf, avoid, alive)
 
 
-def path_trace(scene, ro, rd, uniforms, model='disney'):
+def path_trace(scene, ro, rd, uniforms, model='disney', lanes=None):
     '''Trace [N] rays to completion.  uniforms: [2 + 6 * depth, N]; the
     bounce count is carried by its row count.  Returns radiance V3.
+    lanes: an optional list; each bounce appends (the paths alive at its
+    closest cast, the paths that cast a shadow ray) as 0-d tensors, the
+    casts the megakernel makes for the same paths.
 
     last_brdf_pdf starts at INF, not 0 as in ptina: before the first
     bounce there is no competing light-sampling strategy, so a directly
@@ -138,11 +144,12 @@ def path_trace(scene, ro, rd, uniforms, model='disney'):
                         device=ro.x.device),
              torch.ones_like(ro.x, dtype=torch.bool))
     for b in range(depth):
-        carry = _bounce(scene, carry, uniforms[2 + 6 * b:8 + 6 * b], model)
+        carry = _bounce(scene, carry, uniforms[2 + 6 * b:8 + 6 * b], model,
+                        lanes)
     return carry[3]
 
 
-def pixel_grid(nx, ny, x0=0, y0=0, device='cpu'):
+def pixel_grid(nx, ny, x0=0, y0=0, device='cuda'):
     '''Flattened global pixel ids [N] of an (nx, ny) film tile at offset
     (x0, y0), 'ij' order (x major).'''
     ii, jj = torch.meshgrid(

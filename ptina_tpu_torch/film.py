@@ -20,7 +20,7 @@ PASS_NORMAL = 2
 DEBUG_PINK = (0.9, 0.4, 0.9, 0.0)
 
 
-def new_film(nx, ny, passes=3, device='cpu'):
+def new_film(nx, ny, passes=3, device='cuda'):
     return torch.zeros((passes, 4, nx, ny), dtype=torch.float32,
                        device=device)
 

@@ -92,7 +92,8 @@ def cast_shadow(scene, ro, rd, avoid, tmax):
     '''Occlusion cast routed by the scene: [N] bool.'''
     if _route(scene) == 'blocked':
         return blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
-                                        scene.block_bounds)
+                                        scene.block_bounds,
+                                        scene.node_bounds)
     return dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef)
 
 
@@ -103,7 +104,7 @@ def cast_shaded(scene, ro, rd, avoid):
     if _route(scene) == 'blocked':
         hit, attrs = blocked.blocked_cast_shade(
             ro, rd, avoid, scene.face_coef, scene.face_attr,
-            scene.block_bounds)
+            scene.block_bounds, scene.node_bounds)
     else:
         hit, attrs = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
                                            scene.face_attr)

@@ -84,7 +84,10 @@ def _vgrid32_np():
 
 
 def sobol_vgrid(ndims, device='cpu'):
-    '''Direction-number grid [ndims, SOBOL_BITS] int32 (ndims <= 32).'''
+    '''Direction-number grid [ndims, SOBOL_BITS] int32 (ndims <= 32).
+    Unlike the functions that make scenes and films it defaults to the
+    host: the grid is a host table, and a device copy is asked for by
+    name.'''
     if ndims > MAX_DIMS:
         raise ValueError(f'the embedded Sobol grid holds {MAX_DIMS} '
                          f'dimensions, {ndims} requested')
@@ -128,7 +131,12 @@ def sobol_block(sample_index, ndims, device='cpu'):
     burn-in.  Computed on the host (sobol_point, a 32-float point) and
     copied over; to a CUDA device from pinned memory without blocking, so
     the host never waits for the stream once per sample (the caching host
-    allocator keeps the pinned block until the copy has run).'''
+    allocator keeps the pinned block until the copy has run).
+
+    Unlike the functions that make scenes and films it defaults to the
+    host: the megakernel reads the point from its launch parameters
+    (engine/fused.py:fused_trace_primary), so a card default would add a
+    device-to-host copy to every sample.'''
     pt = torch.from_numpy(sobol_point(sample_index, ndims))
     if torch.device(device).type == 'cuda':
         return pt.pin_memory().to(device, non_blocking=True)

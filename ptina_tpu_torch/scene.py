@@ -20,7 +20,10 @@ take the blocked two-level cast (intersect/blocked.py): their faces are
 Morton-ordered and padded to whole BLOCK_FACES blocks, and block_bounds
 holds each block's box.  Block b is rows b * BLOCK_FACES ... of the same
 face_coef / face_attr tables; the reference's transposed t5b / attrsb
-block tables are a TPU layout and are not carried.  accel='dense' above
+block tables are a TPU layout and are not carried.  The port's own
+node_bounds is the box tree its blocked kernels walk: an implicit
+complete binary tree over leaves of LEAF_FACES consecutive faces
+(compute_node_bounds); the reference has no such table.  accel='dense' above
 MAX_DENSE_FACES (the reference's XLA brute route) is not ported and
 raises NotImplementedError.
 '''
@@ -32,7 +35,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ptina_tpu_torch.intersect.blocked import BLOCK_FACES, MAX_BLOCKS
+from ptina_tpu_torch.intersect.blocked import (BLOCK_FACES, LEAF_FACES,
+                                               MAX_BLOCKS, tree_leaves)
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.dispatch import route
 from ptina_tpu_torch.intersect.plucker import pack_faces
@@ -41,8 +45,9 @@ __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'make_materials', 'make_lights', 'make_textures',
            'scene_from_numpy', 'precompute_tri_functionals',
            'pack_corner_attrs', 'morton_face_order', 'compute_block_bounds',
-           'DEFAULT_MATERIAL', 'MATERIAL_PARAMS', 'LIGHT_POINT', 'LIGHT_AREA',
-           'MAX_DENSE_FACES', 'BLOCK_FACES', 'MAX_BLOCKS']
+           'compute_node_bounds', 'DEFAULT_MATERIAL', 'MATERIAL_PARAMS',
+           'LIGHT_POINT', 'LIGHT_AREA', 'MAX_DENSE_FACES', 'BLOCK_FACES',
+           'LEAF_FACES', 'MAX_BLOCKS']
 
 MATERIAL_PARAMS = (
     'basecolor', 'metallic', 'roughness', 'specular', 'specularTint',
@@ -117,6 +122,7 @@ class Scene:
     face_coef: torch.Tensor  # [F, 16] f32
     face_attr: torch.Tensor  # [F, 18] f32
     block_bounds: torch.Tensor  # [ceil(F / BLOCK_FACES), 8] f32 boxes
+    node_bounds: torch.Tensor   # [2 * P, 8] f32 box tree (compute_node_bounds)
     accel: str = 'auto'
     world_tex_id: int = -1
 
@@ -218,7 +224,33 @@ def compute_block_bounds(tri_pos, nfaces, block_faces=BLOCK_FACES):
     return out
 
 
-def make_materials(materials=None, max_materials=None, device='cpu'):
+def compute_node_bounds(tri_pos, nfaces):
+    '''The box tree of the blocked casts: an implicit complete binary tree
+    in heap layout over the leaves of LEAF_FACES consecutive faces of the
+    padded table tri_pos [F, 3, 3].  Returns [2 * P, 8] float32 rows of
+    (lo.xyz, hi.xyz, 0, 0), P the least power of two >= ceil(F / 32):
+    node k has children 2k and 2k + 1, leaf l is node P + l (faces 32 l
+    ... 32 l + 31, inside block l // 16), and each inner node's box is
+    the union of its children's.  Leaves and nodes that hold no live face
+    keep the inverted box of compute_block_bounds, so every slab test
+    rejects them; row 0 is unused.  The tree's depth is log2(P): 12 for
+    cornell_highpoly's 3,184 leaves, at most 16 at MAX_BLOCKS.  Host
+    numpy.'''
+    leaves = compute_block_bounds(tri_pos, nfaces, LEAF_FACES)
+    p = tree_leaves(tri_pos.shape[0])
+    out = np.zeros((2 * p, 8), np.float32)
+    out[:, 0:3] = np.float32(3.4e38)
+    out[:, 3:6] = np.float32(-3.4e38)
+    out[p:p + leaves.shape[0]] = leaves
+    for s in range(p.bit_length() - 2, -1, -1):  # levels bottom-up
+        k = np.arange(1 << s, 2 << s)
+        out[k, 0:3] = np.minimum(out[2 * k, 0:3], out[2 * k + 1, 0:3])
+        out[k, 3:6] = np.maximum(out[2 * k, 3:6], out[2 * k + 1, 3:6])
+    return out
+
+
+def make_materials(materials=None, max_materials=None,
+                   device='cuda'):
     '''Material table from 12-tuples of (fac, texid) pairs in
     MATERIAL_PARAMS order; fac may be scalar, 3- or 4-sequence.'''
     m = max_materials if max_materials is not None else len(materials or [])
@@ -256,7 +288,7 @@ def _materials_from_numpy(fac, tex, device):
                      zero=zero, textured=textured)
 
 
-def make_textures(images=None, device='cpu'):
+def make_textures(images=None, device='cuda'):
     '''Pad and stack numpy images [nx, ny, c] into a TextureAtlas
     (uint8 -> float, grey -> RGB, RGB -> RGBA).'''
     if not images:
@@ -291,7 +323,7 @@ def make_textures(images=None, device='cpu'):
 
 
 def make_lights(lights=None, max_lights=None, default_light=True,
-                device='cpu'):
+                device='cuda'):
     '''Light pool from dicts with pos/color/size/type and optional axes;
     with no lights and default_light, the reference's default point light
     (color 32, pos (1, 2, 3), size 0.5).'''
@@ -335,6 +367,7 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
     move everything to `device`.'''
     coef, attr = pack_faces(tri_w2b, tri_attrs)
     bounds = compute_block_bounds(np.asarray(tri_pos), int(nfaces))
+    nodes = compute_node_bounds(np.asarray(tri_pos), int(nfaces))
 
     def dev(x):
         if isinstance(x, np.ndarray):
@@ -351,14 +384,14 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
         cam_v2w=dev(np.asarray(cam_v2w, np.float32)),
         cam_w2v=dev(np.asarray(cam_w2v, np.float32)),
         face_coef=dev(coef), face_attr=dev(attr), block_bounds=dev(bounds),
-        accel=accel, world_tex_id=int(world_tex_id))
+        node_bounds=dev(nodes), accel=accel, world_tex_id=int(world_tex_id))
 
 
 def make_scene(vertices, mtlids=None, materials=None, images=None,
                lights=None, world_fac=(0.1, 0.1, 0.1, 0.1), world_tex=-1,
                cam_pers=None, default_light=True, pad_faces_to=8,
                accel='auto', max_lights=None, max_materials=None,
-               device='cpu'):
+               device='cuda'):
     '''Assemble a Scene from host-side numpy data.
 
     vertices: [F*3, 8] float array (pos3 + nrm3 + uv2 per vertex).
@@ -428,7 +461,7 @@ _TRI_KEYS = ('tri_pos', 'tri_nrm', 'tri_uv', 'tri_mtl', 'tri_w2b',
 _LIGHT_KEYS = ('color', 'pos', 'axes', 'size', 'type')
 
 
-def scene_from_numpy(arrays, device='cpu'):
+def scene_from_numpy(arrays, device='cuda'):
     '''Scene from a dict of numpy arrays holding the reference Scene's
     fields, so both packages render one scene from the same numbers:
 
@@ -438,8 +471,8 @@ def scene_from_numpy(arrays, device='cpu'):
       light_count, light_kinds (tuple), tex_data, tex_nx, tex_ny,
       world_fac, world_tex, cam_v2w, cam_w2v, accel (str).
 
-    The cast-kernel tables and block_bounds are derived here, not
-    carried.'''
+    The cast-kernel tables, block_bounds and node_bounds are derived
+    here, not carried.'''
     a = arrays
     f = np.asarray(a['tri_w2b']).shape[0]
     route(f, a.get('accel', 'auto'))

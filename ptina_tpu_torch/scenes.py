@@ -133,7 +133,7 @@ def _cornell_boxes():
     return tall, short
 
 
-def cornell_box(textured_image=None, device='cpu', **kw):
+def cornell_box(textured_image=None, device='cuda', **kw):
     '''Cornell two-boxes, 34 triangles.  textured_image: optional numpy
     image bound as material 0's basecolor texture, with planar wall UVs.'''
     shell, mtl = _cornell_shell()
@@ -185,7 +185,7 @@ def _sphere_smooth_normals(tris, center):
     return n
 
 
-def cornell_monkey(device='cpu', **kw):
+def cornell_monkey(device='cuda', **kw):
     '''Cornell + a 944-triangle smooth blob + a box = 978 triangles.'''
     shell, mtl = _cornell_shell()
     blob = _uv_sphere((0.0, 1.3, 0.2), 1.0)
@@ -205,7 +205,7 @@ def cornell_monkey(device='cpu', **kw):
                       **kw)
 
 
-def cornell_highpoly(nu=320, nv=160, device='cpu', **kw):
+def cornell_highpoly(nu=320, nv=160, device='cuda', **kw):
     '''Cornell + a smooth UV sphere of 2 * nu * (nv - 1) triangles + a box
     (101,782 triangles at the defaults): the big scene.  Above
     MAX_DENSE_FACES it takes the blocked two-level cast, with
@@ -228,7 +228,7 @@ def cornell_highpoly(nu=320, nv=160, device='cpu', **kw):
                       **kw)
 
 
-def envlight_scene(env_res=(64, 128), device='cpu', **kw):
+def envlight_scene(env_res=(64, 128), device='cuda', **kw):
     '''Glossy sphere + ground under a procedural equirect sky (world_tex
     0) with a bright sun blob, plus a small point light, so both MIS
     strategies carry weight.'''
@@ -269,7 +269,7 @@ def _sphere_uvs(tris, center):
     return np.stack([u, v], axis=-1).astype(np.float32)
 
 
-def matball(roughness_tex=None, device='cpu', **kw):
+def matball(roughness_tex=None, device='cuda', **kw):
     '''Material-preview ball on a ground plane, lit by the default point
     light and the environment.  roughness_tex: optional numpy image bound
     to the ball's roughness (texture 0, spherical UVs).'''

@@ -5,7 +5,10 @@ cornell_highpoly), the blocked casts' plain versions (the twins of the
 CUDA kernels in csrc/blocked_cast.cu) against the JAX blocked Pallas
 kernels in interpret mode and against JAX brute, the table-level closest
 cast (kernel #1) against pallas_cast_closest in interpret mode, and a
-blocked render against the JAX render of the same scene.
+blocked render against the JAX render of the same scene.  The port's own
+box tree (Scene.node_bounds, which the CUDA kernels walk) is checked
+against the faces it bounds, and the kernels' culling through its torch
+twin (blocked.box_entries): the leaf of brute's winner is never pruned.
 
 Tolerances (the reference's own, or about twice the worst reading):
   * blocked casts (tests/test_blocked.py:87-136): hit, index, the
@@ -53,12 +56,15 @@ from ptina_tpu.intersect.plucker import (pack_extract, finish_extraction,
 from ptina_tpu.utils.vec import V3 as JV3
 from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.scene import (make_scene, morton_face_order,
-                                   scene_from_numpy, BLOCK_FACES)
+                                   scene_from_numpy, BLOCK_FACES, LEAF_FACES)
 from ptina_tpu_torch.film import new_film, film_to_image
 from ptina_tpu_torch.engine.path import render
 from ptina_tpu_torch.intersect import blocked, dense_cast, dispatch
+from ptina_tpu_torch.intersect import brute as tbrute
+from ptina_tpu_torch.intersect.blocked import box_entries, leaf_pairs
 from ptina_tpu_torch.utils.vec import V3
 
+from test_torch_cuda_kernels import _tie_table
 from test_torch_scene import jax_scene_arrays
 
 torch.set_num_threads(2)
@@ -91,13 +97,20 @@ def _cluster_verts(nfaces=700, seed=0):
     return verts
 
 
+def _cpu(pkg):
+    '''The port's scene functions default to the card; its tests build on
+    the CPU.'''
+    return {} if pkg is jscenes else {'device': 'cpu'}
+
+
 SCENES = {
-    'cornell_highpoly': lambda pkg: pkg.cornell_highpoly(),
+    'cornell_highpoly': lambda pkg: pkg.cornell_highpoly(**_cpu(pkg)),
     'cornell_highpoly_48x24_blocked': lambda pkg: pkg.cornell_highpoly(
-        nu=48, nv=24, accel='blocked'),
+        nu=48, nv=24, accel='blocked', **_cpu(pkg)),
     'cluster_700': lambda pkg: (jmake_scene if pkg is jscenes
                                 else make_scene)(_cluster_verts(),
-                                                 accel='blocked'),
+                                                 accel='blocked',
+                                                 **_cpu(pkg)),
 }
 
 _BUILT = {}
@@ -117,7 +130,8 @@ def _cast_scenes(name):
     key = name + '/arrays'
     if key not in _BUILT:
         js = _scenes(name)[0]
-        _BUILT[key] = (js, scene_from_numpy(jax_scene_arrays(js)))
+        _BUILT[key] = (js, scene_from_numpy(jax_scene_arrays(js),
+                                            device='cpu'))
     return _BUILT[key]
 
 
@@ -139,8 +153,9 @@ def test_block_scene_matches_reference(name):
     if name == 'cornell_highpoly':
         assert int(ts.nfaces) == 101782 and f == 101888 and f // 512 == 199
     # scene_from_numpy derives the same boxes from the JAX arrays
-    tn = scene_from_numpy(jax_scene_arrays(js))
+    tn = scene_from_numpy(jax_scene_arrays(js), device='cpu')
     assert torch.equal(tn.block_bounds, ts.block_bounds)
+    assert torch.equal(tn.node_bounds, ts.node_bounds)
 
 
 def test_morton_order_matches_reference():
@@ -177,7 +192,7 @@ def _cluster_rays(n=96, seed=1):
 def _shade(ts, tro, trd, avoid):
     return blocked.blocked_cast_shade(tro, trd, torch.from_numpy(avoid),
                                       ts.face_coef, ts.face_attr,
-                                      ts.block_bounds)
+                                      ts.block_bounds, ts.node_bounds)
 
 
 def _assert_hits(got, ref, u_tol=UV_REF, v_tol=UV_REF):
@@ -230,7 +245,7 @@ def test_blocked_any_matches_reference():
                        jnp.asarray(tmax), interpret=True)
     got = blocked.blocked_cast_any(tro, trd, torch.from_numpy(avoid),
                                    torch.from_numpy(tmax), ts.face_coef,
-                                   ts.block_bounds)
+                                   ts.block_bounds, ts.node_bounds)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     bref = jbrute.cast_any(jro, jrd, js.tri_w2b, jnp.asarray(avoid),
                            jnp.asarray(tmax))
@@ -250,10 +265,12 @@ def test_blocked_avoid_excludes_self():
     # lies before it on the key's t grid
     none = torch.full((96,), -1, dtype=torch.int32)
     occ = blocked.blocked_cast_any(tro, trd, none, first.t * 1.001,
-                                   ts.face_coef, ts.block_bounds)
+                                   ts.face_coef, ts.block_bounds,
+                                   ts.node_bounds)
     assert occ.numpy()[first.hit.numpy()].all()
     occ = blocked.blocked_cast_any(tro, trd, first.index, first.t,
-                                   ts.face_coef, ts.block_bounds)
+                                   ts.face_coef, ts.block_bounds,
+                                   ts.node_bounds)
     assert not occ.numpy().any()
 
 
@@ -293,7 +310,7 @@ def test_big_scene_casts_match_brute():
     tmax = (np.asarray(ref.t) * rng.uniform(0.5, 1.5, n)).astype(np.float32)
     occ = blocked.blocked_cast_any(tro, trd, torch.from_numpy(avoid),
                                    torch.from_numpy(tmax), ts.face_coef,
-                                   ts.block_bounds)
+                                   ts.block_bounds, ts.node_bounds)
     occ_ref = jbrute.cast_any(jro, jrd, js.tri_w2b, jnp.asarray(avoid),
                               jnp.asarray(tmax))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref))
@@ -352,7 +369,8 @@ def test_blocked_render_matches_reference():
                                        spp=2)))[..., :3]
     assert dispatch._route(scene) == 'blocked'
     before = (dict(dense_cast.LAUNCHES), dict(blocked.LAUNCHES))
-    got = film_to_image(render(scene, new_film(32, 32), 0, spp=2))
+    got = film_to_image(render(scene, new_film(32, 32, device='cpu'), 0,
+                               spp=2))
     got = got[..., :3].numpy()
     assert (dict(dense_cast.LAUNCHES), dict(blocked.LAUNCHES)) == before
     assert got.shape == ref.shape and np.isfinite(got).all()
@@ -365,15 +383,168 @@ def test_blocked_wrappers_validate_operands():
     _, ts = _cast_scenes('cluster_700')
     _, (tro, trd) = _rays(*_cluster_rays(n=16))
     avoid = torch.full((16,), -1, dtype=torch.int32)
+    nodes = ts.node_bounds
     with pytest.raises(ValueError, match='block_bounds'):
         blocked.blocked_cast_shade(tro, trd, avoid, ts.face_coef,
-                                   ts.face_attr, ts.block_bounds[:1])
+                                   ts.face_attr, ts.block_bounds[:1], nodes)
     with pytest.raises(ValueError, match='block_bounds'):
         blocked.blocked_cast_any(tro, trd, avoid, torch.ones(16),
-                                 ts.face_coef, ts.block_bounds.double())
+                                 ts.face_coef, ts.block_bounds.double(),
+                                 nodes)
     with pytest.raises(ValueError, match='attr'):
         blocked.blocked_cast_shade(tro, trd, avoid, ts.face_coef,
-                                   ts.face_attr[:, :6], ts.block_bounds)
+                                   ts.face_attr[:, :6], ts.block_bounds,
+                                   nodes)
     with pytest.raises(ValueError, match='avoid'):
         blocked.blocked_cast_any(tro, trd, avoid.long(), torch.ones(16),
-                                 ts.face_coef, ts.block_bounds)
+                                 ts.face_coef, ts.block_bounds, nodes)
+    # the tree: 2P rows of 8 float32, P = 32 leaf slots for 1,024 faces
+    assert nodes.shape == (64, 8)
+    with pytest.raises(ValueError, match='node_bounds'):
+        blocked.blocked_cast_shade(tro, trd, avoid, ts.face_coef,
+                                   ts.face_attr, ts.block_bounds, nodes[:32])
+    with pytest.raises(ValueError, match='node_bounds'):
+        blocked.blocked_cast_any(tro, trd, avoid, torch.ones(16),
+                                 ts.face_coef, ts.block_bounds,
+                                 nodes.double())
+    with pytest.raises(ValueError, match='node_bounds'):
+        blocked.blocked_cast_shade(tro, trd, avoid, ts.face_coef,
+                                   ts.face_attr, ts.block_bounds,
+                                   nodes.to('meta'))
+    with pytest.raises(ValueError, match='CUDA'):
+        blocked.blocked_cast_visits(tro, trd, avoid, torch.ones(16),
+                                    ts.face_coef, ts.face_attr,
+                                    ts.block_bounds, nodes)
+
+
+# ---------------------------------------------------------------- box tree
+
+def _ragged_scene():
+    '''cornell_monkey's dense arrays (984 faces in build order) forced to
+    accel='blocked': a ragged last block of 472 faces and a ragged last
+    leaf of 24.'''
+    if 'ragged_984' not in _BUILT:
+        arrays = jax_scene_arrays(jscenes.cornell_monkey())
+        arrays['accel'] = 'blocked'
+        _BUILT['ragged_984'] = scene_from_numpy(arrays, device='cpu')
+    return _BUILT['ragged_984']
+
+
+# name -> (the port's scene, the tree's depth log2(P))
+TREES = {
+    'cornell_highpoly': (lambda: _cast_scenes('cornell_highpoly')[1], 12),
+    'cornell_highpoly_48x24_blocked': (
+        lambda: _scenes('cornell_highpoly_48x24_blocked')[1], 7),
+    'ragged_984': (_ragged_scene, 5),
+}
+
+
+@pytest.mark.parametrize('name', sorted(TREES))
+def test_node_bounds_tree(name):
+    '''node_bounds is the heap-layout tree over 32-face leaves: each leaf
+    box is its live faces' box, each inner node the union of its
+    children, pure-padding leaves inverted, and the 16 leaves of block b
+    make up block_bounds[b].'''
+    scene, depth = TREES[name][0](), TREES[name][1]
+    nodes = scene.node_bounds.numpy()
+    f, nf = scene.face_coef.shape[0], int(scene.nfaces)
+    p = nodes.shape[0] // 2
+    nleaves = -(-f // LEAF_FACES)
+    assert nodes.shape == (2 * p, 8) and nodes.dtype == np.float32
+    assert p == 1 << depth and p // 2 < nleaves <= p
+    # the kernels' stack covers the deepest tree the route admits
+    assert blocked.tree_leaves(blocked.MAX_BLOCKED_FACES) \
+        == 1 << blocked.MAX_TREE_DEPTH
+    if name == 'cornell_highpoly':
+        assert nleaves == 3184
+    lo, hi = nodes[:, 0:3], nodes[:, 3:6]
+    # leaves: the exact box of their live faces' vertices
+    verts = np.zeros((p * LEAF_FACES, 9), np.float32)
+    verts[:nf] = scene.tri_pos.numpy()[:nf].reshape(nf, 9)
+    live = (np.arange(p * LEAF_FACES) < nf).reshape(p, LEAF_FACES, 1, 1)
+    v = verts.reshape(p, LEAF_FACES, 3, 3)
+    vlo = np.where(live, v, np.inf).min(axis=(1, 2))
+    vhi = np.where(live, v, -np.inf).max(axis=(1, 2))
+    full = np.arange(p) * LEAF_FACES < nf
+    np.testing.assert_array_equal(lo[p:][full], vlo[full])
+    np.testing.assert_array_equal(hi[p:][full], vhi[full])
+    assert (lo[p:][~full] > hi[p:][~full]).all()  # padding: inverted
+    assert (~full).sum() == p - -(-nf // LEAF_FACES)
+    # inner nodes: the union of their children
+    k = np.arange(1, p)
+    np.testing.assert_array_equal(lo[k], np.minimum(lo[2 * k], lo[2 * k + 1]))
+    np.testing.assert_array_equal(hi[k], np.maximum(hi[2 * k], hi[2 * k + 1]))
+    assert not nodes[:, 6:8].any()
+    # leaf l lies in block l // 16
+    per = BLOCK_FACES // LEAF_FACES
+    bb = scene.block_bounds.numpy()
+    for b in range(bb.shape[0]):
+        leaves = nodes[p + per * b:p + per * (b + 1)]
+        np.testing.assert_array_equal(leaves[:, 0:3].min(0), bb[b, 0:3])
+        np.testing.assert_array_equal(leaves[:, 3:6].max(0), bb[b, 3:6])
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize('name', ['cornell_highpoly', 'ragged_984'])
+def test_tree_gate_keeps_brute_winner(name):
+    '''The kernels' culling, through its torch twin box_entries: for seeded
+    random rays and 32 rays straight down onto the floor plane (a wall on
+    its leaves' box planes), every node on the path from the root to the
+    leaf of brute's winner is entered, at an entry that the floored gate
+    lets through against the winner's key, so no visit order can prune
+    it; leaf_pairs counts at least that leaf's faces.'''
+    scene = TREES[name][0]()
+    rng = np.random.RandomState(9)
+    n = 256
+    o = np.stack([rng.uniform(-1.9, 1.9, n), rng.uniform(0.1, 3.9, n),
+                  rng.uniform(-1.9, 1.9, n)], 1)
+    d = rng.randn(n, 3)
+    d[:32] = [0.0, -1.0, 0.0]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    _, (ro, rd) = _rays(o, d)
+    avoid = torch.full((n,), -1, dtype=torch.int32)
+    ref = tbrute.cast_closest(ro, rd, scene.tri_w2b, avoid)
+    got, _ = _shade(scene, ro, rd, avoid.numpy())
+    assert torch.equal(got.index, ref.index)  # brute's winners
+    hit = got.hit
+    assert hit.float().mean() > 0.9
+    nodes = scene.node_bounds
+    p = nodes.shape[0] // 2
+    entries = box_entries(ro, rd, nodes)  # [N, 2P]
+    rows = torch.nonzero(hit)[:, 0]
+    k = p + got.index[rows].long() // LEAF_FACES
+    key_floor = _bits(got.t[rows])  # the decoded t: the key's floored bits
+    while True:
+        e = entries[rows, k]
+        assert torch.isfinite(e).all()
+        assert ((_bits(e) & ~2047) <= key_floor).all()
+        if (k == 1).all():
+            break
+        k = k // 2
+    # the floor rays hit the floor, which lies on their leaves' lower face
+    pos_y = o[:32, 1] + d[:32, 1] * got.t.numpy()[:32]
+    floor = hit.numpy()[:32] & (np.abs(pos_y) < 1e-4)
+    assert floor.sum() >= 8
+    leaf_lo_y = nodes.numpy()[p + got.index.numpy()[:32][floor]
+                              // LEAF_FACES, 1]
+    assert (leaf_lo_y == 0.0).all()
+    # the bound count: a hit needs at least its winner's leaf
+    nf = int(scene.nfaces)
+    t_stop = torch.where(hit, got.t, float('inf'))
+    pairs = leaf_pairs(ro, rd, nodes, nf, t_stop, True)
+    assert (pairs[hit] >= 1).all() and (pairs <= nf).all()
+    assert not leaf_pairs(ro, rd, nodes, nf, torch.zeros(n), False).any()
+
+
+def test_cross_block_tie_goes_to_lower_block():
+    '''An exact key tie across blocks (one triangle in blocks 0 and 1, at
+    the same block-local id) goes to the lower block, although the tree's
+    nearest-first order enters block 1 first.'''
+    coef, attr, bb, nodes, (ro, rd, avoid) = _tie_table('cpu')
+    entries = box_entries(ro, rd, nodes)
+    assert (entries[:, 3] < entries[:, 2]).all()  # block 1's half first
+    hit, _ = blocked.blocked_cast_shade(ro, rd, avoid, coef, attr, bb, nodes)
+    assert hit.hit.all() and (hit.index == 3).all()

@@ -241,7 +241,7 @@ def test_dispatch_shading_attributes():
     reference's dense route (dispatch.py:119-126): unit normal, uv, and
     mtlid = round(attr 5), -1 on a miss.'''
     js = jcornell_box()
-    scene = scene_from_numpy(jax_scene_arrays(js))
+    scene = scene_from_numpy(jax_scene_arrays(js), device='cpu')
     rng = np.random.RandomState(12)
     o, d = _random_rays(rng, 512, box=True)
     avoid = np.full(512, -1, np.int32)
@@ -298,7 +298,7 @@ def test_dispatch_refuses_blocked_route():
     '''Scenes route by the reference's rule: accel='blocked' and big
     'auto' scenes to the blocked casts, small 'auto' and 'dense' scenes
     to the dense ones; 'dense' above MAX_DENSE_FACES is refused.'''
-    scene = scene_from_numpy(jax_scene_arrays(jcornell_box()))
+    scene = scene_from_numpy(jax_scene_arrays(jcornell_box()), device='cpu')
     assert dispatch._route(scene) == 'dense'
     scene.accel = 'dense'
     assert dispatch._route(scene) == 'dense'

@@ -9,8 +9,11 @@ The cast kernels (dense, closest and blocked) are built with
 --fmad=false, so on identical inputs they agree with the plain versions
 bit for bit; the tolerances stated in chip_smoke.py (index and occlusion
 on >= 99.99% of rays) hold with room.  The blocked kernels run on
-cornell_highpoly(nu=48, nv=24, accel='blocked') (2,560 faces, 5 blocks),
-at 64^2 camera rays and on a random ragged batch.
+cornell_highpoly(nu=48, nv=24, accel='blocked') (2,560 faces, 5 blocks,
+a box tree of 80 leaves in 128 slots), at 64^2 camera rays and on a
+random ragged batch, and on a two-block table built for an exact key tie
+across blocks that the tree's nearest-first walk meets in the higher
+block first (_tie_table).
 
 The path megakernel against its plain twin (the wavefront on the same
 uniforms) at 64x64, with tests/test_fused.py's tolerances: cornell and
@@ -30,9 +33,12 @@ from ptina_tpu_torch.engine import fused
 from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
 from ptina_tpu_torch.film import new_film
 from ptina_tpu_torch.intersect import blocked, dense_cast
+from ptina_tpu_torch.intersect.plucker import pack_faces
 from ptina_tpu_torch.utils import cuda_build
 from ptina_tpu_torch.sampling.sobol import sample_dims, sobol_block
-from ptina_tpu_torch.scene import make_scene, LIGHT_POINT
+from ptina_tpu_torch.scene import (make_scene, compute_block_bounds,
+                                   compute_node_bounds,
+                                   precompute_tri_functionals, LIGHT_POINT)
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene, matball,
                                     BENCH_CAMERA)
@@ -107,7 +113,38 @@ def _assert_same_hit(a, b):
 def _blocked_scene(dev):
     scene = cornell_highpoly(nu=48, nv=24, accel='blocked', device=dev)
     assert scene.block_bounds.shape == (5, 8)
+    assert scene.node_bounds.shape == (256, 8)
     return scene
+
+
+def _tie_table(dev):
+    '''A 1,024-face blocked table (two blocks, all-zero faces elsewhere)
+    for an exact key tie across blocks: face 3 (block 0) and face 515
+    (block 1, the same block-local id) are one triangle in the plane
+    z = 0, and face 516, beside the rays' path at z = -3, pulls block 1's
+    leaves nearer, so the tree's nearest-first walk tests block 1 first.
+    64 rays from z = -5 straight up +z hit both copies at one t; the
+    contract's winner is face 3.  Returns (coef, attr, block_bounds,
+    node_bounds, (ro, rd, avoid)) on `dev`.'''
+    f = 2 * 512
+    tri = np.zeros((f, 3, 3), np.float32)
+    tri[3] = tri[515] = [[-1.0, -1.0, 0.0], [2.0, -1.0, 0.0],
+                         [-1.0, 2.0, 0.0]]
+    tri[516] = [[9.0, 0.0, -3.0], [10.0, 0.0, -3.0], [9.0, 1.0, -3.0]]
+    w2b = precompute_tri_functionals(torch.from_numpy(tri))
+    coef, attr = pack_faces(w2b, torch.zeros((18, f)))
+    rng = np.random.RandomState(5)
+    n = 64
+    xy = rng.uniform(-0.5, 0.5, (2, n)).astype(np.float32)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=dev)
+    rays = (V3(t(xy[0]), t(xy[1]), t(np.full(n, -5.0))),
+            V3(t(np.zeros(n)), t(np.zeros(n)), t(np.ones(n))),
+            t(np.full(n, -1), torch.int32))
+    return (coef.to(dev), attr.to(dev), t(compute_block_bounds(tri, f)),
+            t(compute_node_bounds(tri, f)), rays)
 
 
 def _camera_rays(scene, res, dev):
@@ -129,18 +166,56 @@ def test_blocked_kernels_match_plain(dev, rays):
         ro, rd, avoid, tmax = _camera_rays(scene, 64, dev)
     else:
         ro, rd, avoid, tmax = _rays(1001, scene.face_coef.shape[0], dev)
-    args = (scene.face_coef, scene.face_attr, scene.block_bounds)
+    args = (scene.face_coef, scene.face_attr, scene.block_bounds,
+            scene.node_bounds)
     hk, ak = blocked.blocked_cast_shade(ro, rd, avoid, *args)
     hp, ap = blocked.blocked_cast_shade_plain(ro, rd, avoid, *args)
-    ok = blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
-                                  scene.block_bounds)
-    op = blocked.blocked_cast_any_plain(ro, rd, avoid, tmax,
-                                        scene.face_coef, scene.block_bounds)
+    tables = (scene.face_coef, scene.block_bounds, scene.node_bounds)
+    ok = blocked.blocked_cast_any(ro, rd, avoid, tmax, *tables)
+    op = blocked.blocked_cast_any_plain(ro, rd, avoid, tmax, *tables)
     torch.cuda.synchronize()
     assert hp.hit.float().mean().item() > 0.5
     _assert_same_hit(hk, hp)
     assert torch.equal(ak, ap)
     assert torch.equal(ok, op)
+
+
+def test_blocked_kernels_cross_block_tie(dev):
+    '''The exact key tie across blocks goes to the lower block, as in the
+    plain version, though the walk meets the higher block first.'''
+    coef, attr, bb, nodes, (ro, rd, avoid) = _tie_table(dev)
+    hk, ak = blocked.blocked_cast_shade(ro, rd, avoid, coef, attr, bb, nodes)
+    hp, ap = blocked.blocked_cast_shade_plain(ro, rd, avoid, coef, attr, bb,
+                                              nodes)
+    torch.cuda.synchronize()
+    assert hk.hit.all() and (hk.index == 3).all()
+    _assert_same_hit(hk, hp)
+    assert torch.equal(ak, ap)
+    # both leaves holding the triangle were tested: two leaves a ray
+    shade, _ = blocked.blocked_cast_visits(ro, rd, avoid,
+                                           torch.full_like(ro.x, 10.0),
+                                           coef, attr, bb, nodes)
+    assert (shade[:, 1] >= 2).all()
+
+
+def test_blocked_visits_and_pair_count(dev):
+    '''The traversal counters: a parked occlusion ray (tmax 0) leaves at
+    the root, and the closest-hit kernel tests at least the leaves whose
+    box a ray enters before its hit (leaf_pairs, the bound's count).'''
+    scene = _blocked_scene(dev)
+    ro, rd, avoid, tmax = _rays(1001, scene.face_coef.shape[0], dev)
+    tmax[:16] = 0.0
+    args = (scene.face_coef, scene.face_attr, scene.block_bounds,
+            scene.node_bounds)
+    shade, occ = blocked.blocked_cast_visits(ro, rd, avoid, tmax, *args)
+    hit, _ = blocked.blocked_cast_shade(ro, rd, avoid, *args)
+    assert not occ[:16].any()
+    assert (shade[:, 0] <= scene.node_bounds.shape[0] // 2).all()
+    pairs = blocked.leaf_pairs(ro, rd, scene.node_bounds,
+                               int(scene.nfaces),
+                               torch.where(hit.hit, hit.t, float('inf')),
+                               True)
+    assert (pairs <= blocked.LEAF_FACES * shade[:, 1]).all()
 
 
 def test_blocked_build_or_launch_failure_raises(dev, monkeypatch):
@@ -149,7 +224,7 @@ def test_blocked_build_or_launch_failure_raises(dev, monkeypatch):
     scene = _blocked_scene(dev)
     ro, rd, avoid, tmax = _rays(64, scene.face_coef.shape[0], dev)
     shade = (ro, rd, avoid, scene.face_coef, scene.face_attr,
-             scene.block_bounds)
+             scene.block_bounds, scene.node_bounds)
     real = cuda_build.build_shared_library
 
     def broken(stem, main, sources, flags=cuda_build.NVCC_FLAGS):
@@ -176,7 +251,7 @@ def test_blocked_build_or_launch_failure_raises(dev, monkeypatch):
         blocked.blocked_cast_shade(*shade)
     with pytest.raises(RuntimeError, match='blocked_any_kernel'):
         blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
-                                 scene.block_bounds)
+                                 scene.block_bounds, scene.node_bounds)
     assert blocked.LAUNCHES == before
 
 
@@ -219,7 +294,8 @@ def _all_lobes_scene(dev):
     '''Cornell geometry with every Disney lobe switched on somewhere
     (Materials.zero empty), a textured basecolor, and a point light beside
     the area light.'''
-    base = cornell_box(textured_image=np.zeros((2, 2, 3), np.float32))
+    base = cornell_box(textured_image=np.zeros((2, 2, 3), np.float32),
+                       device='cpu')
     verts = np.concatenate([base.tri_pos.numpy().reshape(-1, 3)[:34 * 3],
                             base.tri_nrm.numpy().reshape(-1, 3)[:34 * 3],
                             base.tri_uv.numpy().reshape(-1, 2)[:34 * 3]], 1)

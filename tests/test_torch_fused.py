@@ -69,7 +69,7 @@ JSCENES = {
 
 def _pair(name):
     js = JSCENES[name]()
-    return js, scene_from_numpy(jax_scene_arrays(js))
+    return js, scene_from_numpy(jax_scene_arrays(js), device='cpu')
 
 
 def _np3(v):
@@ -139,7 +139,7 @@ def test_above_2048_faces_matches_jax(name, res):
     ref = _np3(jpath_trace(js, ro, rd, u))
     pt = sobol_block(0, dims)
     # the twin's uniforms are the JAX path_trace's, bit for bit
-    ii, jj = pixel_grid(res, res)
+    ii, jj = pixel_grid(res, res, device='cpu')
     np.testing.assert_array_equal(
         torch.remainder(pt[:, None] + pixel_rotation(ii, jj, dims),
                         1.0).numpy(), np.asarray(u))
@@ -150,7 +150,7 @@ def test_above_2048_faces_matches_jax(name, res):
 def test_half_frames_compose():
     '''Two half-frame tiles (x0 = 0 and x0 = res / 2 of a res x res film)
     equal the full frame exactly.'''
-    ts = tscenes.cornell_box()
+    ts = tscenes.cornell_box(device='cpu')
     res = 16
     pt = sobol_block(5, PATH_DIMS)
     full = _np3(fused.fused_trace_primary(ts, pt, res, res))
@@ -173,8 +173,8 @@ def _as_if_on_cuda(scene, **fields):
 
 
 def test_fused_eligible_rules():
-    cornell = tscenes.cornell_box()
-    envlight = tscenes.envlight_scene()
+    cornell = tscenes.cornell_box(device='cpu')
+    envlight = tscenes.envlight_scene(device='cpu')
     assert not fused.fused_eligible(cornell)  # on the CPU: never
     assert fused.fused_eligible(_as_if_on_cuda(cornell))
     assert fused.fused_eligible(_as_if_on_cuda(envlight))
@@ -194,17 +194,18 @@ def test_render_sample_fused_equals_wavefront_on_cpu(name):
     No kernel launches.'''
     _, ts = _pair(name)
     before = (dict(fused.LAUNCHES), dict(dense_cast.LAUNCHES))
-    f_fused = render_sample(ts, new_film(16, 16), 3, fused=True)
-    f_wave = render_sample(ts, new_film(16, 16), 3, fused=False)
-    f_auto = render(ts, new_film(16, 16), 3, spp=1)
+    f_fused = render_sample(ts, new_film(16, 16, device='cpu'), 3, fused=True)
+    f_wave = render_sample(ts, new_film(16, 16, device='cpu'), 3, fused=False)
+    f_auto = render(ts, new_film(16, 16, device='cpu'), 3, spp=1)
     assert torch.equal(f_fused, f_wave) and torch.equal(f_auto, f_wave)
     assert (dict(fused.LAUNCHES), dict(dense_cast.LAUNCHES)) == before
 
 
 def test_megakernel_is_disney_only():
-    ts = tscenes.cornell_box()
+    ts = tscenes.cornell_box(device='cpu')
     with pytest.raises(ValueError, match='Disney'):
-        render_sample(ts, new_film(8, 8), 0, fused=True, model='lambert')
+        render_sample(ts, new_film(8, 8, device='cpu'), 0, fused=True,
+                      model='lambert')
     # the automatic route takes the wavefront for other models
-    film = render_sample(ts, new_film(8, 8), 0, model='lambert')
+    film = render_sample(ts, new_film(8, 8, device='cpu'), 0, model='lambert')
     assert bool(torch.isfinite(film).all())

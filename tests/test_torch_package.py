@@ -1,15 +1,23 @@
 '''
 Hygiene of the PyTorch port package (ptina_tpu_torch): it never imports
-JAX or the JAX package, and it imports on a machine with neither nvcc
-nor a GPU (its kernel library is built only on first use on the card).
+JAX or the JAX package, it imports on a machine with neither nvcc nor a
+GPU (its kernel library is built only on first use on the card), and its
+entry points default to the card with no CPU fallback.
 '''
 
 import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
+
+from ptina_tpu_torch.film import new_film
+from ptina_tpu_torch.sampling import sobol
+from ptina_tpu_torch.scenes import cornell_box
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'ptina_tpu_torch')
@@ -59,3 +67,39 @@ def test_imports_without_jax_nvcc_or_gpu():
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# the public entry points that build tensors: they run on the card unless
+# the caller asks for the CPU
+CARD_DEFAULT = [
+    ('scenes', 'cornell_box'), ('scenes', 'cornell_monkey'),
+    ('scenes', 'cornell_highpoly'), ('scenes', 'envlight_scene'),
+    ('scenes', 'matball'), ('scene', 'make_scene'),
+    ('scene', 'scene_from_numpy'), ('scene', 'make_materials'),
+    ('scene', 'make_textures'), ('scene', 'make_lights'),
+    ('film', 'new_film'), ('engine.path', 'pixel_grid')]
+
+
+@pytest.mark.parametrize('module,name', CARD_DEFAULT,
+                         ids=lambda x: x)
+def test_entry_points_default_to_the_card(module, name):
+    fn = getattr(importlib.import_module(f'ptina_tpu_torch.{module}'), name)
+    assert inspect.signature(fn).parameters['device'].default == 'cuda'
+
+
+@pytest.mark.parametrize('name', ['sobol_block', 'sobol_vgrid'])
+def test_sobol_points_default_to_the_host(name):
+    '''The Sobol point rides in the megakernel's launch parameters, so it
+    stays a host array unless asked for elsewhere.'''
+    fn = getattr(sobol, name)
+    assert inspect.signature(fn).parameters['device'].default == 'cpu'
+
+
+def test_card_default_has_no_cpu_fallback():
+    '''Without a card the default device raises, as torch does.'''
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises((RuntimeError, AssertionError)):
+        new_film(2, 2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        cornell_box()

@@ -29,7 +29,10 @@ from ptina_tpu.engine.path import (render as jrender,
 from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.scene import scene_from_numpy, make_scene
 from ptina_tpu_torch.film import new_film, film_to_image
-from ptina_tpu_torch.engine.path import render, power_heuristic
+from ptina_tpu_torch.engine.path import (render, power_heuristic, MAX_DEPTH,
+                                         PATH_DIMS)
+from ptina_tpu_torch.engine.fused import fused_trace_primary_plain
+from ptina_tpu_torch.sampling.sobol import sobol_block
 from ptina_tpu_torch.intersect import dense_cast
 from ptina_tpu_torch.io.encoding import decode_numpy_array
 
@@ -41,7 +44,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), 'golden')
 
 
 def _port_image(scene, res, spp):
-    film = render(scene, new_film(res, res), 0, spp=spp)
+    film = render(scene, new_film(res, res, device='cpu'), 0, spp=spp)
     return film_to_image(film)[..., :3].numpy()
 
 
@@ -51,7 +54,8 @@ def test_render_matches_reference(name):
     ref = np.asarray(jto_image(jrender(js, jnew_film(32, 32), 0,
                                        spp=2)))[..., :3]
     before = dict(dense_cast.LAUNCHES)
-    got = _port_image(scene_from_numpy(jax_scene_arrays(js)), 32, 2)
+    got = _port_image(scene_from_numpy(jax_scene_arrays(js), device='cpu'),
+                      32, 2)
     assert dense_cast.LAUNCHES == before  # CPU: plain casts, no kernel
     assert got.shape == ref.shape and np.isfinite(got).all()
     assert abs(got.mean() - ref.mean()) / ref.mean() < 0.01
@@ -68,7 +72,7 @@ def _blur(img, k=2):
 def test_cornell_matches_golden():
     with open(os.path.join(GOLDEN, 'cornell_64x64_512spp.txt')) as fh:
         gold = decode_numpy_array(fh.read())
-    img = _port_image(tscenes.cornell_box(), 64, 64)
+    img = _port_image(tscenes.cornell_box(device='cpu'), 64, 64)
     assert abs(img.mean() - gold.mean()) / gold.mean() < 0.015
     pa, pb = _blur(img), _blur(gold)
     assert (np.abs(pa - pb) / (pb + 0.05)).mean() < 0.05
@@ -88,19 +92,36 @@ def test_env_only_furnace():
     verts[:, :3] = [[100, 100, 100], [101, 100, 100], [100, 101, 100]]
     verts[:, 5] = 1.0
     scene = make_scene(verts, lights=[], default_light=False,
-                       world_fac=(0.7, 0.6, 0.5, 1.0))
+                       world_fac=(0.7, 0.6, 0.5, 1.0), device='cpu')
     img = _port_image(scene, 16, 1)
     np.testing.assert_allclose(img, np.broadcast_to([0.7, 0.6, 0.5],
                                                     img.shape), atol=1e-5)
 
 
 def test_render_is_deterministic_and_progressive():
-    scene = tscenes.cornell_box()
-    f1 = render(scene, new_film(16, 16), 0, spp=2)
-    f2 = render(scene, new_film(16, 16), 0, spp=2)
+    scene = tscenes.cornell_box(device='cpu')
+    f1 = render(scene, new_film(16, 16, device='cpu'), 0, spp=2)
+    f2 = render(scene, new_film(16, 16, device='cpu'), 0, spp=2)
     assert torch.equal(f1, f2)
     # two calls of one sample each accumulate the same film as one call
-    f3 = render(scene, new_film(16, 16), 0, spp=1)
+    f3 = render(scene, new_film(16, 16, device='cpu'), 0, spp=1)
     f3 = render(scene, f3, 1, spp=1)
     assert torch.equal(f1, f3)
     assert (f1[0, 3] == 2).all() and not f1[1:].any()
+
+
+def test_path_trace_counts_lanes_per_bounce():
+    '''path_trace's lanes: per bounce, the paths alive at its closest cast
+    and the paths that cast a shadow ray (the casts the megakernel makes,
+    chip_smoke.py's bound count), without changing the radiance.'''
+    scene = tscenes.cornell_box(device='cpu')
+    pt = sobol_block(9, PATH_DIMS)
+    lanes = []
+    got = fused_trace_primary_plain(scene, pt, 16, 16, lanes=lanes)
+    ref = fused_trace_primary_plain(scene, pt, 16, 16)
+    assert all(torch.equal(getattr(got, c), getattr(ref, c)) for c in 'xyz')
+    alive = [int(a) for a, _ in lanes]
+    shadow = [int(s) for _, s in lanes]
+    assert len(lanes) == MAX_DEPTH and alive[0] == 256
+    assert all(a >= b for a, b in zip(alive, alive[1:]))
+    assert all(0 < s <= a for a, s in zip(alive, shadow))

@@ -55,7 +55,7 @@ def test_wanghash_bit_exact(arity):
 
 def test_pixel_rotation_bit_exact():
     '''A 16x16 pixel block at an offset, all 32 path dimensions.'''
-    ii, jj = pixel_grid(16, 16, 48, 16)
+    ii, jj = pixel_grid(16, 16, 48, 16, device='cpu')
     jii, jjj = jpixel_grid(16, 16, 48, 16)
     np.testing.assert_array_equal(ii.numpy(), np.asarray(jii))
     np.testing.assert_array_equal(jj.numpy(), np.asarray(jjj))
@@ -81,7 +81,7 @@ def test_sobol_points_bit_exact(sample_index):
 def test_sample_dims_bit_exact(sample_index):
     '''The per-pixel uniforms of one sample over a 16x16 block, with the
     rotation computed inside and passed in.'''
-    ii, jj = pixel_grid(16, 16)
+    ii, jj = pixel_grid(16, 16, device='cpu')
     jii, jjj = jpixel_grid(16, 16)
     ref = np.asarray(jsobol.sample_dims(sample_index, jii, jjj, PATH_DIMS))
     got = tsobol.sample_dims(sample_index, ii, jj, PATH_DIMS)

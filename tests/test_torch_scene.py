@@ -92,6 +92,8 @@ SCENES = {
 
 def _build(pkg, name):
     fn, kw = SCENES[name]
+    if pkg is tscenes:
+        kw = dict(kw, device='cpu')
     return getattr(pkg, fn)(**kw)
 
 
@@ -105,7 +107,7 @@ def test_make_scene_matches_reference(name):
 @pytest.mark.parametrize('name', sorted(SCENES))
 def test_scene_from_numpy_round_trips(name):
     ref = jax_scene_arrays(_build(jscenes, name))
-    scene = scene_from_numpy(ref)
+    scene = scene_from_numpy(ref, device='cpu')
     assert_same_arrays(ref, scene_to_numpy(scene), atol=0.0)
     # static structure survives as plain Python attributes
     assert scene.materials.zero == tuple(ref['mat_zero'])
@@ -129,7 +131,7 @@ def test_face_tables_match_reference_coefficients(name):
 
 
 def test_padding_faces_are_zero():
-    s = tscenes.cornell_box()
+    s = tscenes.cornell_box(device='cpu')
     assert s.tri_w2b.shape[0] == 40 and int(s.nfaces) == 34
     assert not s.face_coef[34:].any()
     assert (s.tri_mtl[34:] == -1).all()
@@ -145,7 +147,7 @@ def test_dense_limit_and_blocked_raise():
     nf = MAX_DENSE_FACES + 1
     verts = np.zeros((3 * nf, 8), np.float32)
     verts[:, :3] = rng.randn(3 * nf, 3)
-    scene = make_scene(verts)
+    scene = make_scene(verts, device='cpu')
     assert scene.tri_w2b.shape[0] == 17 * BLOCK_FACES
     assert scene.block_bounds.shape == (17, 8)
     tri = verts[:, :3].reshape(nf, 3, 3)
@@ -153,20 +155,20 @@ def test_dense_limit_and_blocked_raise():
     np.testing.assert_array_equal(scene.tri_pos[:nf].numpy(), tri[order])
     np.testing.assert_array_equal(scene.block_bounds.numpy(),
                                   compute_block_bounds(tri[order], nf))
-    small = make_scene(verts[:30], accel='blocked')
+    small = make_scene(verts[:30], accel='blocked', device='cpu')
     assert small.tri_w2b.shape[0] == BLOCK_FACES and int(small.nfaces) == 10
     assert (small.block_bounds[0, :3] <= small.block_bounds[0, 3:6]).all()
     with pytest.raises(NotImplementedError, match='dense'):
-        make_scene(verts, accel='dense')
+        make_scene(verts, accel='dense', device='cpu')
     arrays = jax_scene_arrays(jscenes.cornell_box())
     arrays['tri_w2b'] = np.zeros((MAX_DENSE_FACES + 8, 3, 4), np.float32)
     arrays['accel'] = 'dense'
     with pytest.raises(NotImplementedError, match='dense'):
-        scene_from_numpy(arrays)
+        scene_from_numpy(arrays, device='cpu')
     huge = np.broadcast_to(np.zeros(8, np.float32),
                            (3 * (BLOCK_FACES * MAX_BLOCKS + 1), 8))
     with pytest.raises(ValueError, match='blocks'):
-        make_scene(huge)
+        make_scene(huge, device='cpu')
 
 
 def test_scene_tensors_stay_on_requested_device():

@@ -180,12 +180,14 @@ def _light_pools():
               axes=np.stack([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]], 1))],
         max_lights=3)
     return {'cornell_area': (cornell.lights,
-                             scene_from_numpy(jax_scene_arrays(cornell)).lights),
+                             scene_from_numpy(jax_scene_arrays(cornell),
+                                              device='cpu').lights),
             'point_area_empty': (jmixed, _torch_lights(jmixed))}
 
 
 def _torch_lights(jl):
-    tl = make_lights([], max_lights=jl.size.shape[0], default_light=False)
+    tl = make_lights([], max_lights=jl.size.shape[0], default_light=False,
+                     device='cpu')
     for k in ('color', 'pos', 'axes', 'size', 'type', 'count'):
         setattr(tl, k, torch.from_numpy(np.array(getattr(jl, k))))
     tl.kinds = jl.kinds
@@ -229,7 +231,7 @@ def test_lights_sample(pool):
 def test_world_at(env):
     js = (jscenes.cornell_box() if env == 'constant'
           else jscenes.envlight_scene(env_res=(16, 32)))
-    ts = scene_from_numpy(jax_scene_arrays(js))
+    ts = scene_from_numpy(jax_scene_arrays(js), device='cpu')
     assert ts.world_textured == (env == 'equirect')
     jd, td = _pair(_unit(np.random.RandomState(6)))
     _close(jlights.world_at(js, jd), tlights.world_at(ts, td), 'world')
@@ -239,7 +241,7 @@ def test_world_at(env):
 def test_fetch_material(textured):
     img = (np.random.RandomState(7).rand(5, 7, 3)).astype(np.float32)
     js = jscenes.cornell_box(textured_image=img if textured else None)
-    ts = scene_from_numpy(jax_scene_arrays(js))
+    ts = scene_from_numpy(jax_scene_arrays(js), device='cpu')
     rng = np.random.RandomState(8)
     mtl = rng.randint(-1, 4, N).astype(np.int32)
     st = rng.uniform(0.0, 1.0, (2, N)).astype(np.float32)
