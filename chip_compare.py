@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+'''
+chip_compare.py — time the path megakernel and the two blocked casts of
+this checkout against those of another checkout of the repository (say
+its parent commit, unpacked with `git archive` into a git-ignored
+directory), on one GPU, in turns, and check that both give the same bits.
+
+    python3 chip_compare.py OTHER_TREE [--rounds N]
+
+Each turn is one worker process that imports ptina_tpu_torch from one
+tree (its kernels built from that tree's csrc/ into that tree's build/);
+the turns run other, this, this, other, N times over (default 1).  A
+worker measures, on the card:
+
+  * path_kernel: device ms per 512x512 sample (depth 5, sample 9) of
+    fused_trace_primary on the five benchmark scenes (cornell,
+    cornell_monkey, textured cornell, envlight, matball), CUDA events
+    around 10 launches queued behind a spinning stream (chip_smoke.py's
+    _queued_us);
+  * blocked_shade_kernel / blocked_any_kernel: device ms per call at
+    262,144 seeded random rays from inside cornell_highpoly's box, the
+    same way.
+
+It saves the radiance and the cast results, and the parent process
+holds this tree's against the other's: the share of paths (rays) whose
+outputs are equal bit for bit.  Prints the card's name and power limit
+and, as its last line, one JSON object: per kernel and scene each
+turn's ms, the median per tree, and this / other.  Uses only entry points
+both trees have.  Exits non-zero without a GPU.
+'''
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+RES, DIMS, SAMPLE, REPS = 512, 32, 9, 10
+N_RAYS = 262_144
+SCENES = ('cornell', 'cornell_monkey', 'cornell_textured', 'envlight',
+          'matball')
+
+
+def _queued_ms(torch, fn, reps=REPS):
+    '''Device ms per call of fn() (which must not synchronise): `reps`
+    calls queued behind a torch.cuda._sleep spin of twice a dry run's
+    wall time, timed with CUDA events.'''
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    dry = time.perf_counter() - t0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(dry * 4e9) + 1_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def worker(tree, out_path):
+    '''One turn: time and save the kernels of the ptina_tpu_torch in tree.'''
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    from ptina_tpu_torch import scenes
+    from ptina_tpu_torch.engine import fused
+    from ptina_tpu_torch.intersect import blocked
+    from ptina_tpu_torch.sampling.sobol import sobol_block
+    from ptina_tpu_torch.utils.vec import V3
+    import ptina_tpu_torch
+    assert os.path.dirname(ptina_tpu_torch.__file__).startswith(
+        os.path.abspath(tree))
+    ramp = (np.linspace(0, 1, 64 * 64, dtype=np.float32).reshape(64, 64, 1)
+            * np.ones((1, 1, 3), np.float32))
+    make = {'cornell': lambda: scenes.cornell_box(device='cuda'),
+            'cornell_monkey': lambda: scenes.cornell_monkey(device='cuda'),
+            'cornell_textured': lambda: scenes.cornell_box(
+                textured_image=ramp, device='cuda'),
+            'envlight': lambda: scenes.envlight_scene(device='cuda'),
+            'matball': lambda: scenes.matball(roughness_tex=ramp,
+                                              device='cuda')}
+    fused.build_library()
+    blocked.build_library()
+    pt = sobol_block(SAMPLE, DIMS)
+    ms, saved = {}, {}
+    for name in SCENES:
+        scene = make[name]()
+        rad = fused.fused_trace_primary(scene, pt, RES, RES)
+        saved[name] = torch.stack([rad.x, rad.y, rad.z]).cpu().numpy()
+        ms[f'path_kernel/{name}'] = _queued_ms(
+            torch, lambda: fused.fused_trace_primary(scene, pt, RES, RES))
+    hp = scenes.cornell_highpoly(device='cuda')
+    rng = np.random.RandomState(7)
+    o = np.stack([rng.uniform(-1.9, 1.9, N_RAYS),
+                  rng.uniform(0.1, 3.9, N_RAYS),
+                  rng.uniform(-1.9, 1.9, N_RAYS)], 1)
+    d = rng.randn(N_RAYS, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device='cuda')
+    ro = V3(t(o[:, 0]), t(o[:, 1]), t(o[:, 2]))
+    rd = V3(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
+    avoid = t(np.where(rng.rand(N_RAYS) < 0.25,
+                       rng.randint(0, hp.face_coef.shape[0], N_RAYS), -1),
+              torch.int32)
+    tmax = t(rng.uniform(0.0, 6.0, N_RAYS))
+    tables = (hp.face_coef, hp.face_attr, hp.block_bounds, hp.node_bounds)
+    c, _, bb, nb = tables
+    hit, attrs = blocked.blocked_cast_shade(ro, rd, avoid, *tables)
+    occ = blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb, nb)
+    saved['blocked_shade'] = torch.cat(
+        [hit.index[None].float(), hit.t[None], hit.u[None], hit.v[None],
+         attrs]).cpu().numpy()
+    saved['blocked_any'] = occ[None].cpu().numpy()
+    ms['blocked_shade_kernel/cornell_highpoly'] = _queued_ms(
+        torch, lambda: blocked.blocked_cast_shade(ro, rd, avoid, *tables))
+    ms['blocked_any_kernel/cornell_highpoly'] = _queued_ms(
+        torch, lambda: blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb,
+                                                nb))
+    np.savez(out_path, **saved)
+    print(json.dumps(ms))
+
+
+def _card():
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main():
+    if sys.argv[1:2] == ['--worker']:
+        worker(sys.argv[2], sys.argv[3])
+        return
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_compare: torch.cuda.is_available() is false',
+              file=sys.stderr)
+        sys.exit(2)
+    other = sys.argv[1]
+    rounds = int(sys.argv[sys.argv.index('--rounds') + 1]) \
+        if '--rounds' in sys.argv else 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    card = _card()
+    print(f'[compare] {card}')
+    turns = [('other', other), ('this', here), ('this', here),
+             ('other', other)] * rounds
+    ms = {'this': [], 'other': []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (side, tree) in enumerate(turns):
+            out = os.path.join(tmp, f'{side}_{k}.npz')
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), '--worker',
+                 tree, out], capture_output=True, text=True, check=False,
+                timeout=900)
+            if proc.returncode:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                raise SystemExit(f'the {side} turn {k} failed')
+            ms[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            print(f'[compare] turn {k} {side} ({time.perf_counter() - t0:.1f}'
+                  f' s): {ms[side][-1]}')
+        a = np.load(os.path.join(tmp, 'this_1.npz'))
+        b = np.load(os.path.join(tmp, 'other_0.npz'))
+        same = {k: float((a[k] == b[k]).all(0).mean()) for k in a.files}
+    print(f'[compare] {card} | share of paths (rays) equal bit for bit, '
+          f'this vs other: {same}')
+    res = {}
+    for key in ms['this'][0]:
+        mine = [m[key] for m in ms['this']]
+        theirs = [m[key] for m in ms['other']]
+        res[key] = {'this_ms': mine, 'other_ms': theirs,
+                    'this_median': statistics.median(mine),
+                    'other_median': statistics.median(theirs),
+                    'ratio': statistics.median(mine)
+                    / statistics.median(theirs)}
+        print(f'[compare] {card} | {key}: this {res[key]["this_median"]:.4f}'
+              f' ms, other {res[key]["other_median"]:.4f} ms (x'
+              f'{res[key]["ratio"]:.3f}); turns this {mine}, other '
+              f'{theirs}')
+    print(json.dumps({'card': card, 'bit_equal_share': same, 'ms': res}))
+
+
+if __name__ == '__main__':
+    main()

@@ -64,10 +64,15 @@ exits non-zero without the final line):
                 could take for its work on those inputs, the larger of
                 its FP32 operations (36 a ray-face pair) over 67 TFLOP/s
                 and its bytes over 3.35 TB/s; the pairs are F x rays for
-                the dense casts, the live faces times the paths that cast
-                per bounce for the megakernel (path_trace's lanes), and
-                for the blocked casts the live faces of the leaves a ray
-                must enter (blocked.leaf_pairs).  Per
+                the dense casts, and for the megakernel and the blocked
+                casts the live faces of the leaves of its box tree a ray
+                must enter (blocked.leaf_pairs; for the megakernel on the
+                rays of each bounce of its twin, path_trace's lanes,
+                beside the all-faces count of earlier PRs and the pairs
+                the same rays need on trees over index and Morton
+                order), with the tree nodes and leaves its casts visit
+                (fused_trace_visits: per cast, and a warp's slowest
+                ray).  Per
                 scene and route: the megakernel's and its twin's device
                 time per sample, samples/s of 512^2 renders (32 spp; 8 on
                 cornell_highpoly; median of 3), the share of device time
@@ -105,7 +110,8 @@ from ptina_tpu_torch.intersect import blocked, dense_cast
 from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
-from ptina_tpu_torch.scene import make_scene
+from ptina_tpu_torch.scene import (make_scene, compute_node_bounds,
+                                   morton_face_order)
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene,
                                     matball)
@@ -206,15 +212,22 @@ def phase_device():
 
 
 def _ptxas(log):
-    '''{kernel: ptxas resource line} from an nvcc -Xptxas -v log.'''
+    '''{kernel: ptxas resource line} from an nvcc -Xptxas -v log; the
+    path kernel's two instantiations (path_kernel<kBoxes>: the tree walk
+    with box tests, and the one for tables of at most two leaves) share
+    its line, each named.'''
     out, name = {}, None
     for line in log.splitlines():
         if 'entry function' in line:
             name = next((k for k in KERNEL_NAMES if k in line), None)
-            if name:
+            if name == 'path_kernel':
+                out[name] = out.get(name, '') + ('; ' if name in out else '') \
+                    + ('boxes: ' if 'ILb1E' in line else 'two leaves: ')
+            elif name:
                 out[name] = ''
         elif name and ('stack frame' in line or 'registers' in line):
-            out[name] += '; ' * bool(out[name]) + line.split(':')[-1].strip()
+            sep = '; ' if out[name] and not out[name].endswith(': ') else ''
+            out[name] += sep + line.split(':')[-1].strip()
     return out
 
 
@@ -894,24 +907,115 @@ def _blocked_bounds(card, scene, rays):
     return out
 
 
+def _occluders(scene, lanes):
+    '''Per bounce, the nearest face each shadow ray meets (its path's hit
+    face excluded), from the closest cast's plain version.'''
+    return [dense_cast.cast_closest_plain(lane['ro_sh'], lane['rd_sh'],
+                                          lane['hit'].index,
+                                          scene.face_coef).index
+            for lane in lanes]
+
+
+def _needed_pairs(scene, lanes, occluders, nodes, order):
+    '''The pair tests the megakernel's casts need on a box tree (nodes,
+    over the faces in `order`, a numpy permutation), per bounce
+    on the twin's rays (path_trace's lanes), by blocked.leaf_pairs: a
+    closest cast the live faces of every leaf it enters at or before its
+    hit; a shadow ray its nearest occluder's leaf if occluded, else every
+    leaf it enters before min(tmax, INF).  [(closest, shadow)] totals.'''
+    nf = int(scene.nfaces)
+    inf = torch.tensor(float('inf'), device=DEV)
+    slot = torch.as_tensor(np.argsort(order), device=DEV)  # of each face id
+    out = []
+    for lane, occluder in zip(lanes, occluders):
+        hit = lane['hit']
+        closest = blocked.leaf_pairs(lane['ro'], lane['rd'], nodes, nf,
+                                     torch.where(hit.hit, hit.t, inf), True)
+        leaf = slot[torch.clamp_min(occluder, 0).long()] \
+            // blocked.LEAF_FACES
+        live = torch.clamp(nf - blocked.LEAF_FACES * leaf, 0,
+                           blocked.LEAF_FACES)
+        shadow = torch.where(
+            lane['occ'], live,
+            blocked.leaf_pairs(lane['ro_sh'], lane['rd_sh'], nodes, nf,
+                               torch.clamp_max(lane['tmax'], 1e6), False))
+        out.append((int(closest[lane['alive']].sum()),
+                    int(shadow[lane['shadow']].sum())))
+    return out
+
+
 def _path_bound(card, name, scene):
-    '''(bound ms, bound_by) of the megakernel's sample 9 at 512^2: the
-    live faces times the closest and shadow casts its paths make per
-    bounce (path_trace's lanes on the same uniforms), and its reads of
-    the face and texture tables and its radiance rows.'''
+    '''((bound ms, bound_by), all-faces bound ms) of the megakernel's
+    sample 9 at 512^2.  The bound counts the pairs these paths need on
+    the scene's tree (_needed_pairs, the twin's rays on the same
+    uniforms) and the bytes of the face, tree and texture tables and the
+    radiance rows; the all-faces bound, kept for the record, every live
+    face for every cast.  Prints both, beside the pairs the same rays
+    would need on trees over index order and plain Morton order.'''
     lanes = []
     fused.fused_trace_primary_plain(scene, sobol_block(9, DIMS), RES, RES,
                                     lanes=lanes)
-    alive = [int(a) for a, _ in lanes]
-    shadow = [int(s) for _, s in lanes]
-    nf = int(scene.nfaces)
-    flops = FLOPS_PER_PAIR * nf * (sum(alive) + sum(shadow))
-    nbytes = 136 * nf + _nbytes(scene.textures.data) + 12 * N_FULL
-    b = _bound(flops, nbytes)
-    print(f'[bound] {card} | path_kernel {name} {RES}x{RES}: paths per bounce '
-          f'{alive}, shadow rays {shadow}, {nf} faces -> {b[0]:.5f} ms by '
-          f'{b[1]}')
-    return b
+    alive = [int(lane['alive'].sum()) for lane in lanes]
+    shadow = [int(lane['shadow'].sum()) for lane in lanes]
+    nf, f = int(scene.nfaces), scene.face_coef.shape[0]
+    occluders = _occluders(scene, lanes)
+    needed = _needed_pairs(scene, lanes, occluders, scene.fused_nodes,
+                           scene.fused_order.cpu().numpy())
+    pairs = sum(c + s for c, s in needed)
+    tree_b = _nbytes(scene.fused_nodes, scene.fused_order) + 64 * nf
+    b = _bound(FLOPS_PER_PAIR * pairs, 136 * nf + tree_b
+               + _nbytes(scene.textures.data) + 12 * N_FULL)
+    all_faces = _bound(FLOPS_PER_PAIR * nf * (sum(alive) + sum(shadow)),
+                       136 * nf + _nbytes(scene.textures.data)
+                       + 12 * N_FULL)[0]
+    casts = sum(alive) + sum(shadow)
+    print(f'[bound] {card} | path_kernel {name} {RES}x{RES}: paths per '
+          f'bounce {alive}, shadow rays {shadow}; needs {pairs} pairs '
+          f'({pairs / casts:.2f} a cast; per bounce closest/shadow '
+          f'{needed}) -> {b[0]:.5f} ms by {b[1]} [all {nf} faces every '
+          f'cast: {all_faces:.5f} ms]')
+    pos = scene.tri_pos.cpu().numpy()
+    pad = np.arange(nf, f)
+    for order_name, order in (
+            ('index', np.arange(f)),
+            ('Morton', np.concatenate([morton_face_order(pos[:nf]), pad]))):
+        nodes = torch.as_tensor(compute_node_bounds(pos[order], nf),
+                                device=DEV)
+        other = _needed_pairs(scene, lanes, occluders, nodes, order)
+        print(f'[bound] {card} | path_kernel {name}: the same rays on a '
+              f'tree over {order_name} order need '
+              f'{sum(c + s for c, s in other) / casts:.2f} pairs a cast '
+              f'(closest {sum(c for c, _ in other) / sum(alive):.2f}, '
+              f'shadow {sum(s for _, s in other) / max(sum(shadow), 1):.2f}'
+              f'; the scene\'s order: closest '
+              f'{sum(c for c, _ in needed) / sum(alive):.2f}, shadow '
+              f'{sum(s for _, s in needed) / max(sum(shadow), 1):.2f})')
+    return b, all_faces
+
+
+def _path_visits(card, name, scene):
+    '''The megakernel's own tree-walk counters at 512^2, sample 9
+    (fused_trace_visits): inner nodes and leaves per closest and per
+    shadow cast, and the leaves of the slowest ray of each warp of 32
+    paths.  Returns {cast: (inner, leaves, warp's slowest leaves)}.'''
+    _, vis = fused.fused_trace_visits(scene, sobol_block(9, DIMS), RES, RES)
+    out = {}
+    for c, cast in enumerate(('closest', 'shadow')):
+        v = vis[:, :, c]  # [N, depth, 2]
+        made = v[..., 0] >= 0
+        slowest = v[..., 1].reshape(-1, 32, DEPTH).amax(1)  # [warps, depth]
+        warp_made = made.reshape(-1, 32, DEPTH).any(1)
+        out[cast] = (v[..., 0][made].float().mean().item(),
+                     v[..., 1][made].float().mean().item(),
+                     slowest[warp_made].float().mean().item())
+    print(f'[visits] {card} | path_kernel {name} {RES}x{RES}: per closest '
+          f'cast {out["closest"][0]:.2f} inner nodes, {out["closest"][1]:.3f}'
+          f' leaves ({blocked.LEAF_FACES * out["closest"][1]:.1f} face '
+          f'slots), a warp\'s slowest ray {out["closest"][2]:.2f} leaves; '
+          f'per shadow cast {out["shadow"][0]:.2f} inner nodes, '
+          f'{out["shadow"][1]:.3f} leaves, a warp\'s slowest '
+          f'{out["shadow"][2]:.2f}')
+    return out
 
 
 def _profile_share(scene, use_fused, names=None):
@@ -1048,8 +1152,12 @@ def phase_timings(card, scenes, tables, highpoly):
     _print_kernel_times(card, 'cornell_highpoly', N_FULL,
                         kt['cornell_highpoly'])
     bounds['cornell_highpoly'] = _blocked_bounds(card, highpoly, rays)
-    bounds['path'] = {name: _path_bound(card, name, scene)
-                      for name, scene in scenes.items()}
+    path_bounds = {name: _path_bound(card, name, scene)
+                   for name, scene in scenes.items()}
+    bounds['path'] = {k: v[0] for k, v in path_bounds.items()}
+    bounds['path_all_faces'] = {k: v[1] for k, v in path_bounds.items()}
+    bounds['path_visits'] = {name: _path_visits(card, name, scene)
+                             for name, scene in scenes.items()}
     pk = {}
     for name, scene in scenes.items():
         pk[name] = _path_times(scene)
@@ -1124,7 +1232,9 @@ def main():
         bounds['path']['cornell'],
         ms_by_scene={k: v[0] for k, v in pk.items()},
         plain_ms_by_scene={k: v[1] for k, v in pk.items()},
-        bound_ms_by_scene={k: v[0] for k, v in bounds['path'].items()}))
+        bound_ms_by_scene={k: v[0] for k, v in bounds['path'].items()},
+        bound_ms_all_faces_by_scene=bounds['path_all_faces'],
+        visits_per_cast_by_scene=bounds['path_visits']))
     kernels.append(cast_entry(
         'closest', KERNEL_SOURCE, counts['table']['closest'], 'cornell',
         ms_monkey=kt['cornell_monkey']['closest'][0],

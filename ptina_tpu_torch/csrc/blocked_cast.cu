@@ -38,11 +38,12 @@
 // rays' blocks.
 //
 // What the design does about it: one thread per ray walks the tree
-// depth-first with a 17-entry stack (depth <= 16 at MAX_BLOCKS * 16
-// leaves), the nearer child first.  A conservative slab test of each box
-// (the reference's relative margins, blocked.py:287-296) gives an entry
-// bound; the closest-hit kernel prunes a node whose entry, floored to the
-// key's t grid, is strictly beyond the running best (the reference's
+// depth-first (tree.cuh: walk_tree, in the while-while order) with a
+// 17-entry stack (depth <= 16 at MAX_BLOCKS * 16 leaves), the nearer
+// child first.  A conservative slab test of each box (the reference's
+// relative margins, blocked.py:287-296) gives an entry bound; the
+// closest-hit kernel prunes a node whose entry, floored to the key's t
+// grid, is strictly beyond the running best (the reference's
 // gate, blocked.py:445-451), so the nearest-first order gives the early
 // exit that index order could not.  The result is a lexicographic minimum,
 // so it does not depend on the visit order.  The occlusion kernel prunes
@@ -53,106 +54,15 @@
 #include <cuda_runtime.h>
 
 #include "plucker.cuh"
+#include "tree.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;        // rays per CUDA block
 constexpr int kBlockFaces = 512;   // scene.BLOCK_FACES
-constexpr int kLeafFaces = 32;     // blocked.LEAF_FACES
-constexpr int kLeavesPerBlock = kBlockFaces / kLeafFaces;
+constexpr int kLeavesPerBlock = kBlockFaces / ptina::kLeafFaces;
 constexpr int kLocalMask = 2047;   // plucker.KEY_FID_MASK: the block-local id
 constexpr int kStack = 17;         // blocked.MAX_TREE_DEPTH + 1
-
-// Conservative slab test of the ray against node k's box (two float4:
-// lo.xyz hi.x, hi.yz 0 0): false when no point of the box lies ahead of
-// the origin; else *entry is a lower bound on the t of any hit inside the
-// box.  The bounds carry the reference's relative margins, so rounding
-// cannot drop a hit whose t sits on a box face (the cornell walls lie on
-// their leaves' planes).  A zero direction component is decided by the
-// origin alone, so no 0 * inf NaN arises (a parked ray points along +z
-// from the origin).  intersect/blocked.py:box_entries is its torch twin.
-__device__ __forceinline__ bool box_entry(const ptina::Ray& r,
-                                          const float4* __restrict__ nodes,
-                                          int k, float* entry) {
-  const float4 a = __ldg(nodes + 2 * k);
-  const float4 b = __ldg(nodes + 2 * k + 1);
-  const float lo[3] = {a.x, a.y, a.z};
-  const float hi[3] = {a.w, b.x, b.y};
-  const float o[3] = {r.ox, r.oy, r.oz};
-  const float d[3] = {r.dx, r.dy, r.dz};
-  float near = -INFINITY, far = INFINITY;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    if (!(lo[ax] <= hi[ax])) return false;  // a padding node's inverted box
-    if (d[ax] == 0.f) {
-      if (o[ax] < lo[ax] || o[ax] > hi[ax]) return false;
-      continue;
-    }
-    const float t1 = (lo[ax] - o[ax]) / d[ax];
-    const float t2 = (hi[ax] - o[ax]) / d[ax];
-    near = fmaxf(near, fminf(t1, t2));
-    far = fminf(far, fmaxf(t1, t2));
-  }
-  near = near * (1.0f - 1e-6f);
-  far = far * (1.0f + 1e-6f);
-  if (!(far > 0.f && near <= far && isfinite(near))) return false;
-  *entry = fmaxf(near, 0.f);
-  return true;
-}
-
-// Depth-first walk of the box tree, nearer child first.  pruned(entry)
-// says whether a box entered at `entry` can still matter; it is asked
-// again when a deferred node is popped, since the ray's state has moved
-// on.  leaf(l) tests leaf l's faces and returns true to end the walk.
-// visits, when given, receives (inner nodes visited, leaves tested).
-template <class Pruned, class Leaf>
-__device__ __forceinline__ void walk_tree(const ptina::Ray& r,
-                                          const float4* __restrict__ nodes,
-                                          int p, Pruned pruned, Leaf leaf,
-                                          int2* visits) {
-  int stack_node[kStack];
-  float stack_entry[kStack];
-  int sp = 0;
-  int inner = 0, leaves = 0;
-  int node = 1;
-  float e;
-  if (box_entry(r, nodes, node, &e) && !pruned(e)) {
-    for (;;) {
-      if (node < p) {
-        ++inner;
-        const int c = 2 * node;
-        float e0, e1;
-        const bool h0 = box_entry(r, nodes, c, &e0) && !pruned(e0);
-        const bool h1 = box_entry(r, nodes, c + 1, &e1) && !pruned(e1);
-        if (h0 && h1) {
-          const bool right_first = e1 < e0;  // a tie goes left first
-          stack_node[sp] = right_first ? c : c + 1;
-          stack_entry[sp] = right_first ? e0 : e1;
-          ++sp;
-          node = right_first ? c + 1 : c;
-          continue;
-        }
-        if (h0 || h1) {
-          node = h0 ? c : c + 1;
-          continue;
-        }
-      } else {
-        ++leaves;
-        if (leaf(node - p)) break;
-      }
-      node = 0;  // pop the last deferred node the gate still lets through
-      while (sp > 0) {
-        --sp;
-        if (!pruned(stack_entry[sp])) {
-          node = stack_node[sp];
-          break;
-        }
-      }
-      if (node == 0) break;
-    }
-  }
-  if (visits) *visits = make_int2(inner, leaves);
-}
 
 __global__ void __launch_bounds__(kBlock)
 blocked_shade_kernel(const float* __restrict__ ox,
@@ -174,7 +84,7 @@ blocked_shade_kernel(const float* __restrict__ ox,
   int best = ptina::kKeyMiss;
   int best_blk = -1;
 
-  walk_tree(
+  ptina::walk_tree<kStack, true>(
       r, nodes, p,
       // a box whose every hit is strictly beyond the running best on the
       // key's t grid (KEY_MISS keeps every box in play)
@@ -182,8 +92,8 @@ blocked_shade_kernel(const float* __restrict__ ox,
         return (__float_as_int(entry) & ~kLocalMask) > (best & ~kLocalMask);
       },
       [&](int l) {
-        const int base = l * kLeafFaces;
-        const int cnt = min(kLeafFaces, f - base);
+        const int base = l * ptina::kLeafFaces;
+        const int cnt = min(ptina::kLeafFaces, f - base);
         const int blk = l / kLeavesPerBlock;
         const int local0 = base - blk * kBlockFaces;  // block-local ids
         const float4* c = coef + 4 * base;
@@ -236,11 +146,11 @@ blocked_any_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   const float tm = tmax[i];
   bool occ = false;
 
-  walk_tree(
+  ptina::walk_tree<kStack, true>(
       r, nodes, p, [&](float entry) { return entry >= tm; },
       [&](int l) {
-        const int base = l * kLeafFaces;
-        const int cnt = min(kLeafFaces, f - base);
+        const int base = l * ptina::kLeafFaces;
+        const int cnt = min(ptina::kLeafFaces, f - base);
         const float4* c = coef + 4 * base;
         for (int j = 0; j < cnt; ++j) {
           float t;

@@ -14,25 +14,34 @@
 // cast, the Disney eval, and the Disney sample (skipped on the last
 // bounce).  Out: radiance r, g, b [N].
 //
-// What bounds it on this card: the casts.  Every live path meets every
-// face twice per bounce (closest + shadow), ~25 FP32 ops a pair, against
-// a few hundred ops of shading per bounce; at 984 faces that is ~97% of
-// the arithmetic.  The only device-memory traffic is the 12 B written per
-// path (and, in the explicit head, its rays and uniforms read once): the
-// face table (<= 8192 x 136 B), materials, lights and texture atlas are
-// read through the L1/L2 caches, where they stay.
+// What bounds it on this card: the casts.  A brute cast meets every face
+// (~36 FP32 operations a pair) twice per bounce, against a few hundred
+// operations of shading per bounce: at 984 faces ~97% of the arithmetic.
+// The only device-memory traffic is the 12 B written per path (and, in the
+// explicit head, its rays and uniforms read once): the face table (<= 8192
+// x 136 B), the tree, materials, lights and texture atlas are read through
+// the L1/L2 caches, where they stay.
 //
 // What the design does about it: one thread per path, 128-thread blocks,
 // the path's state in registers and the bounce loop inside the thread.
-// The TPU kernel's layout does not survive: no [RG, TR] tiles, no
-// Plücker-as-matmul casts or one-hot winner extraction, no one-hot
-// material switch, no weight-matmul texture fetch, no atan2 polynomial.
-// Faces are read with __ldg: every thread of a warp reads the same face
-// at the same time (one broadcast transaction per float4), and there is
-// no block barrier, so a thread leaves its bounce loop as soon as its
-// path dies (a dead path adds nothing more in the reference either) and
-// its shadow loop at the first occluder.  The BSDF branches on the lobe
-// decision instead of evaluating every lobe (disney.cuh).
+// Both casts walk the scene's box tree over 32-face leaves (tree.cuh:
+// walk_tree; scene.py: fused_nodes over the faces in fused_order, whose
+// coefficient rows are fused_coef), nearer child first, with a 9-entry
+// stack (<= 256 leaves at 8192 faces); a table of at most two leaves
+// (the cornell scenes) is tested leaf by leaf, in a kernel of its own.
+// The closest cast prunes a node whose entry, floored to the key's t grid
+// (& ~fid_mask), is strictly beyond the running best, and keys by the face's original id, so the
+// result is the packed-key minimum over every face, whatever the visit
+// order; the shadow cast prunes entries at or beyond tmax and stops at its
+// first occluder.  The self-hit exclusion is held as the last winner's
+// tree slot, which names the same face as its id.  The TPU kernel's layout
+// does not survive: no [RG, TR] tiles, no Plücker-as-matmul casts or
+// one-hot winner extraction, no one-hot material switch, no weight-matmul
+// texture fetch, no atan2 polynomial.  Faces and boxes are read with
+// __ldg, and there is no block barrier, so a thread leaves its bounce loop
+// as soon as its path dies (a dead path adds nothing more in the reference
+// either).  The BSDF branches on the lobe decision instead of evaluating
+// every lobe (disney.cuh).
 //
 // Numerics: built with --fmad=false, no fast math (utils/cuda_build.py).
 // The uniforms equal sampling/sobol.sample_dims bit for bit: the hash
@@ -46,6 +55,7 @@
 #include "disney.cuh"
 #include "lights.cuh"
 #include "plucker.cuh"
+#include "tree.cuh"
 #include "vec.cuh"
 
 namespace ptina {
@@ -53,6 +63,7 @@ namespace {
 
 constexpr int kBlock = 128;  // paths per block
 constexpr int kMaxDims = 32;  // the primary head's Sobol point
+constexpr int kTreeStack = 9;  // log2(256 leaves at 8192 faces) + 1
 constexpr unsigned kGold = 0x9e3779b9u;
 constexpr float kTwoPowM32 = static_cast<float>(1.0 / 4294967296.0);
 
@@ -81,7 +92,11 @@ struct PtinaPathParams {
   const float* ray_d[3];
   const float* uniforms;     // [2 + 6 depth, N] (explicit head)
   float* out;                // [3, N]
-  int n, f, fid_mask, mat_rows, light_slots, tex_h, tex_w;
+  const float4* tree_coef;   // [F, 16] face_coef in tree slot order
+  const float4* nodes;       // [2 tree_p, 8] the box tree (tree.cuh)
+  const int* order;          // [F] the face id of each tree slot
+  int2* visits;              // null, or [N, depth, 2] per-cast counters
+  int n, f, tree_p, fid_mask, mat_rows, light_slots, tex_h, tex_w;
   int use_tex;   // the atlas holds textures (mtllib modulation on)
   int env_tex;   // equirect environment texture id, -1 = constant
   int depth;
@@ -217,34 +232,83 @@ __device__ __forceinline__ float power_heuristic(float a, float b) {
   return a / (a + b);
 }
 
-// closest cast: the packed-key minimum over every face but `avoid`
-__device__ __forceinline__ int closest_key(const Ray& r, const float4* coef,
-                                           int f, int avoid, int fid_mask) {
+// closest cast: the packed-key minimum over every face but the one in
+// tree slot `avoid`; *slot receives the winner's tree slot
+template <bool kBoxes>
+__device__ __forceinline__ int closest_key(const PtinaPathParams& p,
+                                           const Ray& r, int avoid,
+                                           int* slot, int2* visits) {
   int best = kKeyMiss;
+  int best_slot = -1;
+  walk_tree<kTreeStack, kBoxes>(
+      r, p.nodes, p.tree_p,
+      // a box whose every hit is strictly beyond the running best on the
+      // key's t grid (KEY_MISS keeps every box in play)
+      [&](float entry) {
+        return (__float_as_int(entry) & ~p.fid_mask) > (best & ~p.fid_mask);
+      },
+      [&](int l) {
+        const int base = l * kLeafFaces;
+        const int cnt = min(kLeafFaces, p.f - base);
+        const float4* c = p.tree_coef + 4 * base;
 #pragma unroll 4
-  for (int j = 0; j < f; ++j) {
-    const float4* c = coef + 4 * j;
-    float t;
-    const bool valid = face_hit(r, __ldg(c), __ldg(c + 1), __ldg(c + 2),
-                                __ldg(c + 3), &t);
-    if (valid && j != avoid && t < kInf)
-      best = min(best, pack_key(t, j, fid_mask));
-  }
+        for (int j = 0; j < cnt; ++j) {
+          float t;
+          const bool valid =
+              face_hit(r, __ldg(c + 4 * j), __ldg(c + 4 * j + 1),
+                       __ldg(c + 4 * j + 2), __ldg(c + 4 * j + 3), &t);
+          if (valid && base + j != avoid && t < kInf) {
+            // keys are distinct (the id field), so the slot follows
+            const int k = pack_key(t, __ldg(p.order + base + j), p.fid_mask);
+            if (k < best) {
+              best = k;
+              best_slot = base + j;
+            }
+          }
+        }
+        return false;
+      },
+      visits);
+  *slot = best_slot;
   return best;
 }
 
-// shadow cast: a valid hit on a face but `avoid` at t < min(tmax, INF)
-__device__ __forceinline__ bool occluded(const Ray& r, const float4* coef,
-                                         int f, int avoid, float tmax) {
+// shadow cast: a valid hit on a face but the one in tree slot `avoid` at
+// t < min(tmax, INF)
+template <bool kBoxes>
+__device__ __forceinline__ bool occluded(const PtinaPathParams& p,
+                                         const Ray& r, int avoid, float tmax,
+                                         int2* visits) {
+  bool occ = false;
+  walk_tree<kTreeStack, kBoxes>(
+      r, p.nodes, p.tree_p, [&](float entry) { return entry >= tmax; },
+      [&](int l) {
+        const int base = l * kLeafFaces;
+        const int cnt = min(kLeafFaces, p.f - base);
+        const float4* c = p.tree_coef + 4 * base;
 #pragma unroll 4
-  for (int j = 0; j < f; ++j) {
-    const float4* c = coef + 4 * j;
-    float t;
-    const bool valid = face_hit(r, __ldg(c), __ldg(c + 1), __ldg(c + 2),
-                                __ldg(c + 3), &t);
-    if (valid && j != avoid && t < kInf && t < tmax) return true;
-  }
-  return false;
+        for (int j = 0; j < cnt; ++j) {
+          float t;
+          const bool valid =
+              face_hit(r, __ldg(c + 4 * j), __ldg(c + 4 * j + 1),
+                       __ldg(c + 4 * j + 2), __ldg(c + 4 * j + 3), &t);
+          if (valid && base + j != avoid && t < kInf && t < tmax) {
+            occ = true;
+            return true;
+          }
+        }
+        return false;
+      },
+      visits);
+  return occ;
+}
+
+// cast c (0 closest, 1 shadow) of bounce b of path i in the counters
+__device__ __forceinline__ int2* visit_slot(const PtinaPathParams& p, int i,
+                                            int b, int c) {
+  return p.visits
+             ? p.visits + (static_cast<size_t>(i) * p.depth + b) * 2 + c
+             : nullptr;
 }
 
 // camera.camera_rays: unproject the near and far points of NDC (x, y)
@@ -262,7 +326,14 @@ __device__ __forceinline__ V3 unproject(const float* m, float x, float y,
   return v3(px * inv, py * inv, pz * inv);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// kBoxes: the casts test the tree's boxes (more than two leaves); a table
+// of one or two leaves (at most 64 faces: the cornell scenes) takes the
+// instantiation without them, whose registers are the shading's alone.
+// At least 6 blocks of 128 an SM: ptxas then spills a little of the box
+// walk's state to L1-resident local memory, which costs less than the
+// occupancy it buys.
+template <bool kBoxes>
+__global__ void __launch_bounds__(kBlock, 6)
 path_kernel(const __grid_constant__ PtinaPathParams p) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= p.n) return;
@@ -302,7 +373,7 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
   V3 throughput = v3(1.0f, 1.0f, 1.0f);
   V3 result = v3(0.0f, 0.0f, 0.0f);
   float last_brdf_pdf = kInf;  // full first-hit emitter weight
-  int avoid = -1;              // self-hit exclusion: the last face hit
+  int avoid = -1;  // self-hit exclusion: the tree slot of the last face hit
 
   for (int b = 0; b < p.depth; ++b) {
     const int d0 = 2 + 6 * b;
@@ -310,7 +381,9 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
 
     // closest hit + attributes (dense_cast.cu::shade_kernel's contract)
     const Ray ray = make_ray(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z);
-    const int key = closest_key(ray, p.coef, p.f, avoid, p.fid_mask);
+    int slot;
+    const int key =
+        closest_key<kBoxes>(p, ray, avoid, &slot, visit_slot(p, i, b, 0));
     const bool hit = key != kKeyMiss;
     float t = kInf;
     int idx = -1;
@@ -359,7 +432,7 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
     if (any3(li_color)) {
       const Ray sray = make_ray(hitpos.x, hitpos.y, hitpos.z, li_dir.x,
                                 li_dir.y, li_dir.z);
-      if (!occluded(sray, p.coef, p.f, idx, li_dis)) {
+      if (!occluded<kBoxes>(p, sray, slot, li_dis, visit_slot(p, i, b, 1))) {
         const V3 brdf = disney_eval(m, p.zero, normal, sign, -rd, li_dir);
         const float mis2 = power_heuristic(li_pdf, vavg3(brdf));
         const V3 nee = li_color * brdf * (mis2 * vdot_or_zero(normal, li_dir));
@@ -377,7 +450,7 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
     throughput = throughput * color;
     ro = hitpos;
     rd = outdir;
-    avoid = idx;
+    avoid = slot;
     last_brdf_pdf = pdf;
     if (!any3(throughput) || (rd.x == 0.0f && rd.y == 0.0f && rd.z == 0.0f))
       break;  // a dead path adds nothing more
@@ -396,8 +469,11 @@ extern "C" {
 // cudaGetLastError() after the launch.
 int ptina_path_trace(const PtinaPathParams* p, void* stream) {
   const int grid = (p->n + ptina::kBlock - 1) / ptina::kBlock;
-  ptina::path_kernel<<<grid, ptina::kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(*p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->tree_p > 2)
+    ptina::path_kernel<true><<<grid, ptina::kBlock, 0, s>>>(*p);
+  else
+    ptina::path_kernel<false><<<grid, ptina::kBlock, 0, s>>>(*p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,6 +37,9 @@ dimensions.
 
 Tables: the kernel reads the scene's tensors as they are — the face
 tables face_coef [F, 16] / face_attr [F, 18] built once per scene, the
+box tree its two casts walk (fused_nodes [2P, 8] over the faces in
+fused_order [F], whose rows fused_coef [F, 16] the leaves test; scene.py;
+_params raises where they are missing or misaligned), the
 material factors [M+1, 12, 4] with their texture ids [M+1, 12] (the
 reference's _pack_materials rows), the light pool's per-slot arrays (the
 fields _pack_lights stacks into [18, L]), the [T, H, W, 4] atlas and its
@@ -45,7 +48,8 @@ reads no value back to the host.  The Sobol point rides in the by-value
 launch parameters (_Params, mirrored by PtinaPathParams).
 
 LAUNCHES counts kernel launches (incremented only where the kernel is
-launched).
+launched); fused_trace_visits launches the primary head once to read the
+casts' tree-walk counters, and counts that launch too.
 '''
 
 import ctypes
@@ -54,6 +58,7 @@ import functools
 import torch
 
 from ptina_tpu_torch.camera import camera_rays
+from ptina_tpu_torch.intersect.blocked import tree_leaves
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.plucker import key_mask_for
 from ptina_tpu_torch.sampling.sobol import pixel_rotation, MAX_DIMS
@@ -63,14 +68,15 @@ from ptina_tpu_torch.utils.vec import V3
 
 __all__ = ['fused_eligible', 'fused_trace_primary', 'fused_trace_uniforms',
            'fused_trace_primary_plain', 'fused_trace_uniforms_plain',
-           'build_library', 'LAUNCHES', 'MAX_FUSED_FACES']
+           'fused_trace_visits', 'build_library', 'LAUNCHES',
+           'MAX_FUSED_FACES']
 
 MAX_FUSED_FACES = MAX_DENSE_FACES
 
 LAUNCHES = {'path': 0}
 
 _SOURCES = ('fused_path.cu', 'vec.cuh', 'disney.cuh', 'lights.cuh',
-            'plucker.cuh')
+            'plucker.cuh', 'tree.cuh')
 
 # Materials.zero names -> the kernel's kZero* bits (csrc/disney.cuh)
 _ZERO_BITS = {'metallic': 1, 'subsurface': 2, 'sheen': 4, 'clearcoat': 8,
@@ -87,8 +93,10 @@ class _Params(ctypes.Structure):
                            'light_type', 'light_count', 'tex_data', 'tex_nx',
                            'tex_ny', 'world_fac', 'cam')]
         + [('ray_o', _P * 3), ('ray_d', _P * 3), ('uniforms', _P),
-           ('out', _P)]
-        + [(k, _I) for k in ('n', 'f', 'fid_mask', 'mat_rows', 'light_slots',
+           ('out', _P), ('tree_coef', _P), ('nodes', _P), ('order', _P),
+           ('visits', _P)]
+        + [(k, _I) for k in ('n', 'f', 'tree_p', 'fid_mask', 'mat_rows',
+                             'light_slots',
                              'tex_h', 'tex_w', 'use_tex', 'env_tex', 'depth',
                              'zero', 'kinds', 'primary', 'x0', 'y0',
                              'tile_ny')]
@@ -123,10 +131,12 @@ def fused_eligible(scene):
             and not (scene.world_textured and _no_atlas(scene)))
 
 
-def _addr(t, dtype, shape=None):
+def _addr(t, dtype, shape=None, name='kernel operand'):
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f'{name} is missing')
     if not t.is_cuda or t.dtype != dtype \
             or (shape is not None and tuple(t.shape) != shape):
-        raise ValueError(f'kernel operand must be a CUDA {dtype} {shape}, '
+        raise ValueError(f'{name} must be a CUDA {dtype} {shape}, '
                          f'got {t.device} {t.dtype} {tuple(t.shape)}')
     return ptr(t).value
 
@@ -146,10 +156,22 @@ def _params(scene, n, depth, out):
     env_tex = scene.world_tex_id if use_tex and scene.world_textured else -1
     if env_tex >= t_ or any(tid >= t_ for _, _, tid in mats.textured):
         raise ValueError('a texture id points past the atlas')
-    if scene.face_coef.data_ptr() % 16 or tex.data.data_ptr() % 16:
-        raise ValueError('face and texture tables must be 16-byte aligned')
     f32, i32 = torch.float32, torch.int32
     p = _Params()
+    # the box tree the two casts walk (scene.py: fused_order, fused_coef,
+    # fused_nodes); a scene without it has no route through the kernel
+    tp = tree_leaves(f)
+    p.tree_coef = _addr(getattr(scene, 'fused_coef', None), f32, (f, 16),
+                        'fused_coef')
+    p.nodes = _addr(getattr(scene, 'fused_nodes', None), f32, (2 * tp, 8),
+                    'fused_nodes')
+    p.order = _addr(getattr(scene, 'fused_order', None), i32, (f,),
+                    'fused_order')
+    for name in ('face_coef', 'fused_coef', 'fused_nodes'):
+        if getattr(scene, name).data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned')
+    if tex.data.data_ptr() % 16:
+        raise ValueError('the texture atlas must be 16-byte aligned')
     p.coef = _addr(scene.face_coef, f32, (f, 16))
     p.attr = _addr(scene.face_attr, f32, (f, 18))
     p.mat_fac = _addr(mats.fac, f32, (m1, 12, 4))
@@ -166,7 +188,7 @@ def _params(scene, n, depth, out):
     p.world_fac = _addr(scene.world_fac, f32, (4,))
     p.cam = _addr(scene.cam_v2w, f32, (4, 4))
     p.out = _addr(out, f32, (3, n))
-    p.n, p.f, p.fid_mask = n, f, key_mask_for(f)
+    p.n, p.f, p.tree_p, p.fid_mask = n, f, tp, key_mask_for(f)
     p.mat_rows, p.light_slots, p.tex_h, p.tex_w = m1, n_l, h_, w_
     p.use_tex, p.env_tex, p.depth = int(use_tex), env_tex, depth
     p.zero = sum(_ZERO_BITS[k] for k in mats.zero)
@@ -210,15 +232,7 @@ def fused_trace_primary_plain(scene, pt, nx, ny, x0=0, y0=0, fnx=None,
     return path_trace(scene, ro, rd, u, lanes=lanes)
 
 
-def fused_trace_primary(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
-    '''One whole progressive sample of the (nx, ny) film tile at offset
-    (x0, y0) of an (fnx, fny) film (default: the tile is the film).
-    pt: the sample's [2 + 6 depth] Sobol point (sobol_block), best on the
-    host: on the card it rides in the launch parameters (a CUDA pt is
-    read back first).  Returns radiance V3 of [nx * ny] rows in
-    pixel_grid order.'''
-    if _check_device(scene).type == 'cpu':
-        return fused_trace_primary_plain(scene, pt, nx, ny, x0, y0, fnx, fny)
+def _primary_params(scene, pt, nx, ny, x0, y0, fnx, fny):
     pt = torch.as_tensor(pt, dtype=torch.float32).reshape(-1).cpu()
     dims = pt.shape[0]
     if dims > MAX_DIMS or dims < 2 or (dims - 2) % 6:
@@ -231,7 +245,36 @@ def fused_trace_primary(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
     p.fnx = float(nx if fnx is None else fnx)
     p.fny = float(ny if fny is None else fny)
     p.pt[:dims] = pt.tolist()
-    return _launch(p, out)
+    return p, out
+
+
+def fused_trace_primary(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
+    '''One whole progressive sample of the (nx, ny) film tile at offset
+    (x0, y0) of an (fnx, fny) film (default: the tile is the film).
+    pt: the sample's [2 + 6 depth] Sobol point (sobol_block), best on the
+    host: on the card it rides in the launch parameters (a CUDA pt is
+    read back first).  Returns radiance V3 of [nx * ny] rows in
+    pixel_grid order.'''
+    if _check_device(scene).type == 'cpu':
+        return fused_trace_primary_plain(scene, pt, nx, ny, x0, y0, fnx, fny)
+    return _launch(*_primary_params(scene, pt, nx, ny, x0, y0, fnx, fny))
+
+
+def fused_trace_visits(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
+    '''fused_trace_primary with the kernel's tree-walk counters read:
+    (radiance V3, visits [N, depth, 2, 2] int32), where visits[i, b, c]
+    holds (inner nodes visited, leaves tested) by path i's closest (c = 0)
+    or shadow (c = 1) cast of bounce b, and -1 where the path made no such
+    cast.  One launch, counted in LAUNCHES.  The counters live in the
+    kernel only, so a CPU scene raises.'''
+    if scene.device.type != 'cuda':
+        raise ValueError('fused_trace_visits reads the CUDA kernel\'s '
+                         'counters: it needs a CUDA scene')
+    p, out = _primary_params(scene, pt, nx, ny, x0, y0, fnx, fny)
+    visits = torch.full((p.n, p.depth, 2, 2), -1, dtype=torch.int32,
+                        device=scene.device)
+    p.visits = _addr(visits, torch.int32)
+    return _launch(p, out), visits
 
 
 def fused_trace_uniforms_plain(scene, ro, rd, uniforms):

@@ -106,7 +106,9 @@ def _bounce(scene, carry, u, model='disney', lanes=None):
     nee = li['color'] * brdf_clr * (mis2 * vdot_or_zero(normal, li['dir']))
     nee_ok = live & ~occ & _any3(li['color'])
     if lanes is not None:
-        lanes.append((alive.sum(), (live & _any3(li['color'])).sum()))
+        lanes.append(dict(alive=alive, ro=ro, rd=rd, avoid=avoid, hit=hit,
+                          shadow=live & _any3(li['color']), ro_sh=ro_sh,
+                          rd_sh=rd_sh, tmax=tmax_sh, occ=occ))
     result = result + vwhere(nee_ok, throughput * nee, 0.0)
 
     # BSDF bounce.  Dead lanes are PARKED on the degenerate ray at the
@@ -128,9 +130,13 @@ def _bounce(scene, carry, u, model='disney', lanes=None):
 def path_trace(scene, ro, rd, uniforms, model='disney', lanes=None):
     '''Trace [N] rays to completion.  uniforms: [2 + 6 * depth, N]; the
     bounce count is carried by its row count.  Returns radiance V3.
-    lanes: an optional list; each bounce appends (the paths alive at its
-    closest cast, the paths that cast a shadow ray) as 0-d tensors, the
-    casts the megakernel makes for the same paths.
+    lanes: an optional list; each bounce appends a dict of its casts:
+    'alive' [N] bool, the paths that make its closest cast, with that
+    cast's rays 'ro', 'rd' (normalised), 'avoid' and its Hit 'hit';
+    'shadow' [N] bool, the paths that cast a shadow ray, with its rays
+    'ro_sh', 'rd_sh', 'tmax' and the occlusion bits 'occ' (every lane's:
+    the rest are parked).  The masks are the casts the megakernel makes
+    for the same paths.
 
     last_brdf_pdf starts at INF, not 0 as in ptina: before the first
     bounce there is no competing light-sampling strategy, so a directly

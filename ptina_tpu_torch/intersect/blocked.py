@@ -87,7 +87,7 @@ MAX_TREE_DEPTH = 16
 
 LAUNCHES = {'blocked_shade': 0, 'blocked_any': 0}
 
-_SOURCES = ('blocked_cast.cu', 'plucker.cuh')
+_SOURCES = ('blocked_cast.cu', 'plucker.cuh', 'tree.cuh')
 
 
 @functools.lru_cache(maxsize=1)
@@ -187,18 +187,20 @@ _FAR_SCALE = float(np.float32(1.0) + np.float32(1e-6))
 
 
 def box_entries(ro, rd, boxes):
-    '''Torch twin of csrc/blocked_cast.cu:box_entry, every ray against
-    every box: entry [N, B] float32, a lower bound on the t of any hit
-    inside the box, and +inf where the slab test rejects the box (no point
-    of it ahead of the origin, or an inverted padding box).  boxes: [B, 8]
-    rows (lo.xyz, hi.xyz, 0, 0).  The same operations in the same order,
-    each rounded once, so it agrees with the kernels bit for bit.'''
+    '''Torch twin of csrc/tree.cuh:box_entry, every ray against every box:
+    entry [N, B] float32, a lower bound on the t of any hit inside the
+    box, and +inf where the slab test rejects the box (no point of it
+    ahead of the origin, or an inverted padding box).  boxes: [B, 8] rows
+    (lo.xyz, hi.xyz, 0, 0).  The same operations in the same order (the
+    direction's reciprocal, then a difference and a product a slab), each
+    rounded once, so it agrees with the kernels bit for bit.'''
     o = torch.stack([ro.x, ro.y, ro.z], 1)[:, None, :]
     d = torch.stack([rd.x, rd.y, rd.z], 1)[:, None, :]
     lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
     zero = d == 0.0
-    t1 = (lo - o) / d
-    t2 = (hi - o) / d
+    inv = 1.0 / d
+    t1 = (lo - o) * inv
+    t2 = (hi - o) * inv
     inf = torch.tensor(float('inf'), dtype=torch.float32, device=o.device)
     near = torch.where(zero, -inf, torch.fmin(t1, t2)).amax(-1)
     far = torch.where(zero, inf, torch.fmax(t1, t2)).amin(-1)

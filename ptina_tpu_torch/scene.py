@@ -26,6 +26,13 @@ complete binary tree over leaves of LEAF_FACES consecutive faces
 (compute_node_bounds); the reference has no such table.  accel='dense' above
 MAX_DENSE_FACES (the reference's XLA brute route) is not ported and
 raises NotImplementedError.
+
+Dense-route scenes carry a second tree of the port's own, the one the path
+megakernel walks (engine/fused.py): fused_order, the faces re-ordered for
+it (fused_face_order), fused_coef, their face_coef rows in that order, and
+fused_nodes, compute_node_bounds over that order.  The scene's own tables
+and face ids stay in build order: the kernel keys and gathers by the
+original id.  Blocked-route scenes carry these three with zero rows.
 '''
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'make_materials', 'make_lights', 'make_textures',
            'scene_from_numpy', 'precompute_tri_functionals',
            'pack_corner_attrs', 'morton_face_order', 'compute_block_bounds',
-           'compute_node_bounds', 'DEFAULT_MATERIAL', 'MATERIAL_PARAMS',
-           'LIGHT_POINT', 'LIGHT_AREA', 'MAX_DENSE_FACES', 'BLOCK_FACES',
-           'LEAF_FACES', 'MAX_BLOCKS']
+           'compute_node_bounds', 'fused_face_order', 'DEFAULT_MATERIAL',
+           'MATERIAL_PARAMS', 'LIGHT_POINT', 'LIGHT_AREA', 'MAX_DENSE_FACES',
+           'BLOCK_FACES', 'LEAF_FACES', 'MAX_BLOCKS']
 
 MATERIAL_PARAMS = (
     'basecolor', 'metallic', 'roughness', 'specular', 'specularTint',
@@ -123,6 +130,10 @@ class Scene:
     face_attr: torch.Tensor  # [F, 18] f32
     block_bounds: torch.Tensor  # [ceil(F / BLOCK_FACES), 8] f32 boxes
     node_bounds: torch.Tensor   # [2 * P, 8] f32 box tree (compute_node_bounds)
+    # the megakernel's box tree (dense route; zero rows on the blocked one)
+    fused_order: torch.Tensor   # [F] int32 face id of each tree slot
+    fused_coef: torch.Tensor    # [F, 16] f32 face_coef[fused_order]
+    fused_nodes: torch.Tensor   # [2 * P, 8] f32 tree over fused_order
     accel: str = 'auto'
     world_tex_id: int = -1
 
@@ -249,6 +260,29 @@ def compute_node_bounds(tri_pos, nfaces):
     return out
 
 
+def fused_face_order(tri_pos, nfaces):
+    '''The face order of the megakernel's box tree over the padded table
+    tri_pos [F, 3, 3]: the live faces whose box's largest extent exceeds
+    a quarter of the scene box's largest extent first, in index order,
+    then the other live faces in Morton order, then the padding.  A
+    room-spanning wall scattered by Morton order would make every leaf it
+    lands in span the room; gathered up front it costs its own leaves
+    only.  [F] int64, host numpy.'''
+    f = tri_pos.shape[0]
+    if nfaces == 0:
+        return np.arange(f)
+    live = tri_pos[:nfaces]
+    ext = live.max(axis=1) - live.min(axis=1)  # [nf, 3]
+    verts = live.reshape(-1, 3)
+    large = ext.max(axis=1) > 0.25 * (verts.max(axis=0)
+                                      - verts.min(axis=0)).max()
+    rest = np.flatnonzero(~large)
+    if rest.size > 1:
+        rest = rest[morton_face_order(live[rest])]
+    return np.concatenate([np.flatnonzero(large), rest,
+                           np.arange(nfaces, f)]).astype(np.int64)
+
+
 def make_materials(materials=None, max_materials=None,
                    device='cuda'):
     '''Material table from 12-tuples of (fac, texid) pairs in
@@ -366,8 +400,15 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
     '''Assemble the Scene from host tensors, add the kernel tables and
     move everything to `device`.'''
     coef, attr = pack_faces(tri_w2b, tri_attrs)
-    bounds = compute_block_bounds(np.asarray(tri_pos), int(nfaces))
-    nodes = compute_node_bounds(np.asarray(tri_pos), int(nfaces))
+    pos = np.asarray(tri_pos)
+    bounds = compute_block_bounds(pos, int(nfaces))
+    nodes = compute_node_bounds(pos, int(nfaces))
+    if route(pos.shape[0], accel) == 'dense':
+        order = fused_face_order(pos, int(nfaces))
+        fused_nodes = compute_node_bounds(pos[order], int(nfaces))
+    else:  # the megakernel does not take the blocked route
+        order = np.zeros(0, np.int64)
+        fused_nodes = np.zeros((0, 8), np.float32)
 
     def dev(x):
         if isinstance(x, np.ndarray):
@@ -384,7 +425,11 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
         cam_v2w=dev(np.asarray(cam_v2w, np.float32)),
         cam_w2v=dev(np.asarray(cam_w2v, np.float32)),
         face_coef=dev(coef), face_attr=dev(attr), block_bounds=dev(bounds),
-        node_bounds=dev(nodes), accel=accel, world_tex_id=int(world_tex_id))
+        node_bounds=dev(nodes),
+        fused_order=dev(order.astype(np.int32)),
+        fused_coef=dev(coef[torch.from_numpy(order)]),
+        fused_nodes=dev(fused_nodes), accel=accel,
+        world_tex_id=int(world_tex_id))
 
 
 def make_scene(vertices, mtlids=None, materials=None, images=None,

@@ -21,8 +21,14 @@ cornell_monkey >= 95% of paths within 1e-3 absolute and means within 2e-3
 relative; the textured, environment-lit and matball scenes (and a scene
 with every Disney lobe and both light kinds) >= 95% within 2e-2 relative
 to max(|ref|, 0.05) and means within 1e-2.  Half frames compose the full
-frame bit for bit.
+frame bit for bit.  The megakernel's two casts walk the scene's box tree
+(fused_nodes): an exact key tie across leaves goes to the lower face id
+though the walk meets the higher first (_fused_tie_scene); its visit
+counters (fused_trace_visits) cover at least the pairs blocked.leaf_pairs
+counts on the twin's rays; a scene without its tree tables raises.
 '''
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,7 +36,8 @@ import torch
 
 from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.engine import fused
-from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
+from ptina_tpu_torch.engine.path import (render, render_sample, pixel_grid,
+                                         path_trace)
 from ptina_tpu_torch.film import new_film
 from ptina_tpu_torch.intersect import blocked, dense_cast
 from ptina_tpu_torch.intersect.plucker import pack_faces
@@ -38,7 +45,8 @@ from ptina_tpu_torch.utils import cuda_build
 from ptina_tpu_torch.sampling.sobol import sample_dims, sobol_block
 from ptina_tpu_torch.scene import (make_scene, compute_block_bounds,
                                    compute_node_bounds,
-                                   precompute_tri_functionals, LIGHT_POINT)
+                                   precompute_tri_functionals, LIGHT_POINT,
+                                   DEFAULT_MATERIAL, MATERIAL_PARAMS)
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene, matball,
                                     BENCH_CAMERA)
@@ -145,6 +153,43 @@ def _tie_table(dev):
             t(np.full(n, -1), torch.int32))
     return (coef.to(dev), attr.to(dev), t(compute_block_bounds(tri, f)),
             t(compute_node_bounds(tri, f)), rays)
+
+
+def _fused_tie_scene(dev):
+    '''A 66-face dense scene (72 padded: a tree of four leaf slots, the
+    smallest the megakernel walks with box tests) for an exact key tie
+    across leaves: faces 3 and 65 are one triangle in the plane z = 0
+    (material 0, red; material 1, green), 63 small faces lie far off at
+    x ~ -20, and face 64, at z = 3 beside the rays' path, pulls the
+    subtree of leaves 2-3 nearer.  fused_face_order puts face 3 in the
+    last slot of leaf 1 and face 65 in the first of leaf 2, so a walk
+    from z = 5 along -z tests face 65 first.  Returns (scene, (ro, rd)):
+    64 such rays, whose contract winner is face 3.'''
+    rng = np.random.RandomState(5)
+    tri = np.zeros((66, 3, 3), np.float32)
+    for i in [i for i in range(64) if i != 3]:
+        c = (rng.uniform(-21, -19), rng.uniform(-2, 0.5), rng.uniform(-1, 1))
+        tri[i] = np.asarray(c) + rng.uniform(-0.2, 0.2, (3, 3))
+    tri[3] = tri[65] = [[-1.0, -1.0, 0.0], [2.0, -1.0, 0.0],
+                        [-1.0, 2.0, 0.0]]
+    tri[64] = [[9.0, 0.0, 3.0], [10.0, 0.0, 3.0], [9.0, 1.0, 3.0]]
+    verts = np.zeros((66 * 3, 8), np.float32)
+    verts[:, 0:3] = tri.reshape(-1, 3)
+    verts[:, 3:6] = (0.0, 0.0, 1.0)
+    mtl = np.full(66, -1, np.int32)
+    mtl[3], mtl[65] = 0, 1
+    base = [(DEFAULT_MATERIAL[k], None) for k in MATERIAL_PARAMS]
+    mats = [[((0.9, 0.1, 0.1), None)] + base[1:],
+            [((0.1, 0.9, 0.1), None)] + base[1:]]
+    scene = make_scene(verts, mtl, materials=mats, device=dev)
+    n = 64
+    xy = rng.uniform(-0.5, 0.5, (2, n)).astype(np.float32)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+    return scene, (V3(t(xy[0]), t(xy[1]), t(np.full(n, 5.0))),
+                   V3(t(np.zeros(n)), t(np.zeros(n)), t(-np.ones(n))))
 
 
 def _camera_rays(scene, res, dev):
@@ -415,3 +460,80 @@ def test_megakernel_raises_for_ineligible_scene(dev):
     scene.accel = 'blocked'
     with pytest.raises(ValueError, match='eligible'):
         fused.fused_trace_primary(scene, sobol_block(0, 32), 8, 8)
+
+
+def _stack3(v):
+    return torch.stack([v.x, v.y, v.z])
+
+
+def test_megakernel_cross_leaf_tie(dev):
+    '''The exact key tie across the tree's leaves goes to face 3, the
+    lower id, as in the twin, though the walk enters face 65's leaf
+    first: the paths take face 3's red material.'''
+    scene, (ro, rd) = _fused_tie_scene(dev)
+    n = ro.x.shape[0]
+    u = torch.as_tensor(np.random.RandomState(6).rand(32, n),
+                        dtype=torch.float32, device=dev)
+    k = fused.fused_trace_uniforms(scene, ro, rd, u)
+    lanes = []
+    p = path_trace(scene, ro, rd, u, lanes=lanes)
+    torch.cuda.synchronize()
+    assert (lanes[0]['hit'].index == 3).all()
+    assert (k.x > k.y).all()
+    _assert_close(k, p, relative=False)
+
+
+def test_megakernel_visit_counters(dev):
+    '''fused_trace_visits: the radiance is the kernel's, a counter is
+    written for exactly the casts the twin makes, a hit tests at least
+    one leaf, and the leaves a cast tests hold at least the pairs
+    blocked.leaf_pairs counts on the twin's rays (closest casts up to
+    their hit, clear shadow rays up to tmax).'''
+    scene = cornell_monkey(device=dev)
+    pt = sobol_block(9, 32)
+    before = fused.LAUNCHES['path']
+    rad, vis = fused.fused_trace_visits(scene, pt, 64, 64)
+    ref = fused.fused_trace_primary(scene, pt, 64, 64)
+    lanes = []
+    fused.fused_trace_primary_plain(scene, pt, 64, 64, lanes=lanes)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES['path'] - before == 2
+    assert torch.equal(_stack3(rad), _stack3(ref))
+    assert vis.shape == (64 * 64, 5, 2, 2)
+    nf, nodes = int(scene.nfaces), scene.fused_nodes
+    inf = torch.tensor(float('inf'), device=dev)
+    for b, lane in enumerate(lanes):
+        closest, shadow = vis[:, b, 0], vis[:, b, 1]
+        assert torch.equal(closest[:, 0] >= 0, lane['alive'])
+        assert torch.equal(shadow[:, 0] >= 0, lane['shadow'])
+        hit = lane['hit']
+        made = lane['alive']
+        assert (closest[made & hit.hit, 1] >= 1).all()
+        pairs = blocked.leaf_pairs(lane['ro'], lane['rd'], nodes, nf,
+                                   torch.where(hit.hit, hit.t, inf), True)
+        assert (pairs[made] <= blocked.LEAF_FACES * closest[made, 1]).all()
+        clear = lane['shadow'] & ~lane['occ']
+        pairs = blocked.leaf_pairs(lane['ro_sh'], lane['rd_sh'], nodes, nf,
+                                   torch.clamp_max(lane['tmax'], 1e6), False)
+        assert (pairs[clear] <= blocked.LEAF_FACES * shadow[clear, 1]).all()
+
+
+def test_megakernel_raises_without_its_tree(dev):
+    '''No fallback to the flat loop or the wavefront: a scene whose tree
+    tables are missing, misshapen, of another type or misaligned raises
+    before any launch.'''
+    scene = cornell_box(device=dev)
+    f = scene.face_coef.shape[0]
+    misaligned = torch.empty(f * 16 + 1, device=dev)[1:].view(f, 16)
+    misaligned.copy_(scene.fused_coef)
+    pt = sobol_block(0, 32)
+    before = fused.LAUNCHES['path']
+    for name, bad in (('fused_nodes', None), ('fused_order', None),
+                      ('fused_nodes', scene.fused_nodes[:2]),
+                      ('fused_order', scene.fused_order.long()),
+                      ('fused_coef', scene.fused_coef.cpu()),
+                      ('fused_coef', misaligned)):
+        broken = dataclasses.replace(scene, **{name: bad})
+        with pytest.raises(ValueError, match=name):
+            fused.fused_trace_primary(broken, pt, 8, 8)
+    assert fused.LAUNCHES['path'] == before

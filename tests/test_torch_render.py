@@ -113,15 +113,21 @@ def test_render_is_deterministic_and_progressive():
 def test_path_trace_counts_lanes_per_bounce():
     '''path_trace's lanes: per bounce, the paths alive at its closest cast
     and the paths that cast a shadow ray (the casts the megakernel makes,
-    chip_smoke.py's bound count), without changing the radiance.'''
+    chip_smoke.py's bound count) with those casts' rays and results,
+    without changing the radiance.'''
     scene = tscenes.cornell_box(device='cpu')
     pt = sobol_block(9, PATH_DIMS)
     lanes = []
     got = fused_trace_primary_plain(scene, pt, 16, 16, lanes=lanes)
     ref = fused_trace_primary_plain(scene, pt, 16, 16)
     assert all(torch.equal(getattr(got, c), getattr(ref, c)) for c in 'xyz')
-    alive = [int(a) for a, _ in lanes]
-    shadow = [int(s) for _, s in lanes]
+    alive = [int(lane['alive'].sum()) for lane in lanes]
+    shadow = [int(lane['shadow'].sum()) for lane in lanes]
     assert len(lanes) == MAX_DEPTH and alive[0] == 256
     assert all(a >= b for a, b in zip(alive, alive[1:]))
     assert all(0 < s <= a for a, s in zip(alive, shadow))
+    # the casts' rays and results: a shadow ray leaves its path's hit
+    for lane in lanes:
+        assert not (lane['shadow'] & ~lane['hit'].hit).any()
+        assert (lane['rd'].x.shape[0], lane['tmax'].shape[0]) == (256, 256)
+        assert not (lane['occ'] & (lane['tmax'] == 0.0)).any()
