@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 '''
-chip_compare.py — time the path megakernel and the two blocked casts of
-this checkout against those of another checkout of the repository (say
-its parent commit, unpacked with `git archive` into a git-ignored
-directory), on one GPU, in turns, and check that both give the same bits.
+chip_compare.py — time the path megakernel, the dense scene-level casts
+and the two blocked casts of this checkout against those of another
+checkout of the repository (say its parent commit, unpacked with `git
+archive` into a git-ignored directory), on one GPU, in turns, and check
+that both give the same bits.
 
     python3 chip_compare.py OTHER_TREE [--rounds N]
 
@@ -17,6 +18,11 @@ worker measures, on the card:
     cornell_monkey, textured cornell, envlight, matball), CUDA events
     around 10 launches queued behind a spinning stream (chip_smoke.py's
     _queued_us);
+  * shade_kernel / any_kernel: device ms per call of the dense route's
+    dispatch.cast_shaded / cast_shadow (an entry point with one signature
+    in every tree, whatever its kernels take) at 262,144 seeded random
+    rays from inside the cornell box, on the five scenes and chip_smoke's
+    random 2,504-face table, the same way;
   * blocked_shade_kernel / blocked_any_kernel: device ms per call at
     262,144 seeded random rays from inside cornell_highpoly's box, the
     same way.
@@ -72,7 +78,7 @@ def worker(tree, out_path):
     import torch
     from ptina_tpu_torch import scenes
     from ptina_tpu_torch.engine import fused
-    from ptina_tpu_torch.intersect import blocked
+    from ptina_tpu_torch.intersect import blocked, dense_cast, dispatch
     from ptina_tpu_torch.sampling.sobol import sobol_block
     from ptina_tpu_torch.utils.vec import V3
     import ptina_tpu_torch
@@ -89,31 +95,61 @@ def worker(tree, out_path):
                                               device='cuda')}
     fused.build_library()
     blocked.build_library()
+    dense_cast.build_library()
     pt = sobol_block(SAMPLE, DIMS)
-    ms, saved = {}, {}
-    for name in SCENES:
-        scene = make[name]()
-        rad = fused.fused_trace_primary(scene, pt, RES, RES)
-        saved[name] = torch.stack([rad.x, rad.y, rad.z]).cpu().numpy()
-        ms[f'path_kernel/{name}'] = _queued_ms(
-            torch, lambda: fused.fused_trace_primary(scene, pt, RES, RES))
-    hp = scenes.cornell_highpoly(device='cuda')
-    rng = np.random.RandomState(7)
-    o = np.stack([rng.uniform(-1.9, 1.9, N_RAYS),
-                  rng.uniform(0.1, 3.9, N_RAYS),
-                  rng.uniform(-1.9, 1.9, N_RAYS)], 1)
-    d = rng.randn(N_RAYS, 3)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
 
     def t(a, dt=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                device='cuda')
-    ro = V3(t(o[:, 0]), t(o[:, 1]), t(o[:, 2]))
-    rd = V3(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
-    avoid = t(np.where(rng.rand(N_RAYS) < 0.25,
-                       rng.randint(0, hp.face_coef.shape[0], N_RAYS), -1),
-              torch.int32)
-    tmax = t(rng.uniform(0.0, 6.0, N_RAYS))
+
+    def rays(seed, f):
+        '''Rays from inside the cornell box in random directions, a quarter
+        avoiding a random face, shadow distances in [0, 6).'''
+        rng = np.random.RandomState(seed)
+        o = np.stack([rng.uniform(-1.9, 1.9, N_RAYS),
+                      rng.uniform(0.1, 3.9, N_RAYS),
+                      rng.uniform(-1.9, 1.9, N_RAYS)], 1)
+        d = rng.randn(N_RAYS, 3)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return (V3(t(o[:, 0]), t(o[:, 1]), t(o[:, 2])),
+                V3(t(d[:, 0]), t(d[:, 1]), t(d[:, 2])),
+                t(np.where(rng.rand(N_RAYS) < 0.25,
+                           rng.randint(0, f, N_RAYS), -1), torch.int32),
+                t(rng.uniform(0.0, 6.0, N_RAYS)))
+    def random_table():
+        '''chip_smoke.py's random 2,504-face table (its material ids have
+        no materials: the casts only).'''
+        rng = np.random.RandomState(3)
+        tris = (rng.randn(2500, 3, 3) * 2.0).astype(np.float32)
+        verts = np.concatenate([tris.reshape(-1, 3),
+                                np.tile([[0.0, 0.0, 1.0]], (7500, 1)),
+                                np.zeros((7500, 2))], axis=1)
+        return scenes.make_scene(verts, rng.randint(-1, 4, size=2500)
+                                 .astype(np.int32), device='cuda')
+    ms, saved = {}, {}
+    for name in SCENES + ('random_2504',):
+        if name == 'random_2504':
+            scene = random_table()
+        else:
+            scene = make[name]()
+            rad = fused.fused_trace_primary(scene, pt, RES, RES)
+            saved[name] = torch.stack([rad.x, rad.y, rad.z]).cpu().numpy()
+            ms[f'path_kernel/{name}'] = _queued_ms(
+                torch, lambda: fused.fused_trace_primary(scene, pt, RES,
+                                                         RES))
+        ro, rd, avoid, tmax = rays(11, scene.face_coef.shape[0])
+        hit, nrm, s, tt, mtl = dispatch.cast_shaded(scene, ro, rd, avoid)
+        occ = dispatch.cast_shadow(scene, ro, rd, avoid, tmax)
+        saved[f'shade/{name}'] = torch.stack(
+            [hit.index.float(), hit.t, hit.u, hit.v, nrm.x, nrm.y, nrm.z, s,
+             tt, mtl.float()]).cpu().numpy()
+        saved[f'any/{name}'] = occ[None].cpu().numpy()
+        ms[f'shade_kernel/{name}'] = _queued_ms(
+            torch, lambda: dispatch.cast_shaded(scene, ro, rd, avoid))
+        ms[f'any_kernel/{name}'] = _queued_ms(
+            torch, lambda: dispatch.cast_shadow(scene, ro, rd, avoid, tmax))
+    hp = scenes.cornell_highpoly(device='cuda')
+    ro, rd, avoid, tmax = rays(7, hp.face_coef.shape[0])
     tables = (hp.face_coef, hp.face_attr, hp.block_bounds, hp.node_bounds)
     c, _, bb, nb = tables
     hit, attrs = blocked.blocked_cast_shade(ro, rd, avoid, *tables)

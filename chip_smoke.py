@@ -8,12 +8,13 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 The main path has three routes, and the script drives each: the path
 megakernel (one launch per sample, every megakernel-eligible scene), the
-wavefront with the dense casts (two cast launches per bounce), and the
-wavefront with the blocked casts on the big scene (cornell_highpoly,
-101,782 faces, whose two casts walk a box tree over 32-face leaves);
-beside them the table-level entry point intersect.cast_closest /
-cast_any.  Phases (each prints its own lines; any failure raises and
-exits non-zero without the final line):
+wavefront with the dense casts (two cast launches per bounce, each
+walking the scene's box tree), and the wavefront with the blocked casts
+on the big scene (cornell_highpoly, 101,782 faces, whose two casts walk a
+box tree over 32-face leaves); beside them the table-level entry point
+intersect.cast_closest / cast_any, whose flat kernels test every face.
+Phases (each prints its own lines; any failure raises and exits non-zero
+without the final line):
 
   1. device   — require CUDA, print the card's name and power limit,
                 disable TF32.
@@ -21,30 +22,34 @@ exits non-zero without the final line):
                 csrc/fused_path.cu and csrc/blocked_cast.cu) for sm_90a,
                 three nvcc processes at once; print each kernel's ptxas
                 registers, spills, stack and shared memory.
-  3. kernels  — each dense CUDA cast (shade, any, closest) against its
-                plain torch version on the card: the cornell (40),
-                cornell_monkey (984) and a random (2,504-face) table, at
-                262,144 rays and a ragged count.  The two blocked casts
-                against theirs on cornell_highpoly (101,888 faces in 199
-                blocks) at the same counts, and on its own 512x512
+  3. kernels  — each dense CUDA cast (the tree shade and any, the flat
+                closest and any_flat) against its plain torch version on
+                the card: the five benchmark scenes (cornell and textured
+                cornell, 40 faces; cornell_monkey, 968; envlight and
+                matball, 2,216) and a random 2,504-face table, at 262,144
+                rays and a ragged count, and the tree casts on the
+                wavefront's own rays (every bounce's closest and shadow
+                cast of a 512x512 sample of each scene).  The two blocked
+                casts against theirs on cornell_highpoly (101,888 faces in
+                199 blocks) at the same counts, and on its own 512x512
                 camera rays (the first bounce of the main path).  The
                 megakernel against its plain twin (path_trace on the same
-                uniforms) at 512x512, samples 0 and 7, on the five
-                benchmark scenes (cornell, cornell_monkey, textured
-                cornell, envlight, matball), its explicit-uniform head on
-                cornell and matball, and two half frames (x0 = 0, 256)
-                against the full frame, bit for bit.
+                uniforms) at 512x512, samples 0 and 7 at depth 5 and
+                sample 0 at depth 8, on the five scenes, its
+                explicit-uniform head on cornell and matball, and two half
+                frames (x0 = 0, 256) against the full frame, bit for bit.
   4. main     — each route with every launch count set to 0 just before
                 it and read just after: the five scenes at 512x512, 32 spp
                 through ptina_tpu_torch.engine.path.render (the automatic
                 route): 32 megakernel launches per scene and no cast
-                launch; cornell and cornell_monkey through
-                render_sample(fused=False): 5 x 32 launches of each dense
-                cast per scene; cornell_highpoly at 512x512, 8 spp
-                through render (the automatic route takes the blocked
-                wavefront): 5 x 8 launches of each blocked cast and
-                nothing else; the table-level cast_closest / cast_any on
-                cornell_monkey's faces: one launch each.
+                launch; the five through render_sample(fused=False): 5 x
+                32 launches of each tree cast per scene and no flat one;
+                cornell_monkey at depth 8 through each dense route;
+                cornell_highpoly at 512x512, 8 spp through render (the
+                automatic route takes the blocked wavefront): 5 x 8
+                launches of each blocked cast and nothing else; the
+                table-level cast_closest / cast_any on cornell_monkey's
+                faces: one launch of each flat kernel.
   5. capacity — cornell_highpoly(nu=640, nv=240) (305,942 faces, 598
                 blocks): the 32-ray float64 oracle of bench.py:183-214
                 (>= 31 of 32 agree, t within 2e-3 relative), and a
@@ -57,24 +62,25 @@ exits non-zero without the final line):
   7. timings  — each cast kernel and its plain version: device time per
                 call (CUDA events around calls queued behind a spinning
                 stream), and the per-call time a caller waits (CUDA-event
-                median, launch overhead included); the
-                blocked casts at 262,144 rays on cornell_highpoly, with
-                the tree nodes and leaves a ray visits (the kernels' own
-                counters).  Each kernel's bound: the least time the card
-                could take for its work on those inputs, the larger of
-                its FP32 operations (36 a ray-face pair) over 67 TFLOP/s
-                and its bytes over 3.35 TB/s; the pairs are F x rays for
-                the dense casts, and for the megakernel and the blocked
-                casts the live faces of the leaves of its box tree a ray
-                must enter (blocked.leaf_pairs; for the megakernel on the
-                rays of each bounce of its twin, path_trace's lanes,
-                beside the all-faces count of earlier PRs and the pairs
-                the same rays need on trees over index and Morton
-                order), with the tree nodes and leaves its casts visit
-                (fused_trace_visits: per cast, and a warp's slowest
-                ray).  Per
-                scene and route: the megakernel's and its twin's device
-                time per sample, samples/s of 512^2 renders (32 spp; 8 on
+                median, launch overhead included): the dense casts at
+                262,144 random rays on the six tables, the blocked casts
+                on cornell_highpoly.  Each kernel's bound: the least time
+                the card could take for its work on those inputs, the
+                larger of its FP32 operations (36 a ray-face pair) over
+                67 TFLOP/s and its bytes over 3.35 TB/s; the pairs are F
+                x rays for the flat casts, and for every tree kernel the
+                live faces of the leaves of its box tree a ray must enter
+                (blocked.leaf_pairs): on the timed rays, and for the
+                megakernel and the dense tree casts on the rays of each
+                bounce of the twin (path_trace's lanes), beside the
+                all-faces count; for the megakernel also the pairs the
+                same rays need on trees over index and Morton order.
+                Beside each bound the tree nodes and leaves the kernels
+                visit (their own counters: dense_cast_visits,
+                blocked_cast_visits, fused_trace_visits; per cast, and a
+                warp's slowest ray).  Per scene and route: the
+                megakernel's and its twin's device time per sample,
+                samples/s of 512^2 renders (32 spp; 8 on
                 cornell_highpoly; median of 3), the share of device time
                 in the route's kernels, the device's busy share of the
                 unprofiled wall time, and the host-device
@@ -121,6 +127,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = 'cuda'
 RES, SPP, DEPTH = 512, 32, 5
 DIMS = 2 + 6 * DEPTH
+# a depth above the 5 of the first slices: a 50-dimension Sobol point
+DEEP = 8
+DEEP_SPP = 4
 N_FULL = RES * RES
 N_RAGGED = 100_003
 # the big scene: the reference benchmark's highpoly cell is 512^2 x 8 spp
@@ -151,14 +160,15 @@ BLOCKED_SOURCE = 'ptina_tpu_torch/csrc/blocked_cast.cu'
 REPLACES = {'shade': 'ptina_tpu/intersect/pallas_cast.py:69',
             'any': 'ptina_tpu/intersect/pallas_cast.py:62',
             'closest': 'ptina_tpu/intersect/pallas_cast.py:51',
+            'any_flat': 'ptina_tpu/intersect/pallas_cast.py:62',
             'path': 'ptina_tpu/engine/fused.py:648',
             'blocked_shade': 'ptina_tpu/intersect/blocked.py:388',
             'blocked_any': 'ptina_tpu/intersect/blocked.py:462'}
 # kernel names as nvcc's log gives them, the longer first ('shade_kernel'
 # is inside 'blocked_shade_kernel')
 KERNEL_NAMES = ('blocked_shade_kernel', 'blocked_any_kernel',
-                'closest_kernel', 'shade_kernel', 'any_kernel',
-                'path_kernel')
+                'closest_kernel', 'any_flat_kernel', 'shade_kernel',
+                'any_kernel', 'path_kernel')
 
 
 def _bench_texture():
@@ -178,7 +188,9 @@ SCENES = {
     'matball': (lambda: matball(roughness_tex=_bench_texture(),
                                 device=DEV), True),
 }
-WAVEFRONT_SCENES = ('cornell', 'cornell_monkey')
+WAVEFRONT_SCENES = tuple(SCENES)
+# the dense scenes whose tree has inner nodes: the wavefront-ray bound
+TREE_SCENES = ('cornell_monkey', 'envlight', 'matball')
 
 
 def card_line():
@@ -212,15 +224,15 @@ def phase_device():
 
 
 def _ptxas(log):
-    '''{kernel: ptxas resource line} from an nvcc -Xptxas -v log; the
-    path kernel's two instantiations (path_kernel<kBoxes>: the tree walk
-    with box tests, and the one for tables of at most two leaves) share
-    its line, each named.'''
+    '''{kernel: ptxas resource line} from an nvcc -Xptxas -v log; the two
+    instantiations of a tree kernel (path_kernel, shade_kernel and
+    any_kernel <kBoxes>: the tree walk with box tests, and the one for
+    tables of at most two leaves) share its line, each named.'''
     out, name = {}, None
     for line in log.splitlines():
         if 'entry function' in line:
             name = next((k for k in KERNEL_NAMES if k in line), None)
-            if name == 'path_kernel':
+            if name and ('ILb1E' in line or 'ILb0E' in line):
                 out[name] = out.get(name, '') + ('; ' if name in out else '') \
                     + ('boxes: ' if 'ILb1E' in line else 'two leaves: ')
             elif name:
@@ -307,13 +319,15 @@ def _hold_hits(hk, hp):
             uv_err.max().item(), bool((uv_err > uv_lim).any()), same)
 
 
-def _hold_casts(name, n, shade, occ, closest=None):
+def _hold_casts(name, n, shade, occ, closest=None, flat=None):
     '''Hold each cast kernel's result against its plain version's:
     shade = ((Hit, attrs) kernel, (Hit, attrs) plain), occ = (kernel,
-    plain) bits, closest = (kernel Hit, plain Hit) or None.  Prints one
-    line, raises out of tolerance, returns {kernel: {'max_abs_err': the
-    largest absolute error of t, u, v and attrs (of the occlusion bits for
-    'any'), 't_max_rel': t's largest relative error}}.'''
+    plain) bits, closest = (kernel Hit, plain Hit) or None, flat = the
+    flat occlusion kernel's bits or None (against occ's plain bits).
+    Prints one line, raises out of tolerance, returns {kernel:
+    {'max_abs_err': the largest absolute error of t, u, v and attrs (of
+    the occlusion bits for 'any' and 'any_flat'), 't_max_rel': t's
+    largest relative error}}.'''
     (hk, ak), (hp, ap) = shade
     agree, t_abs, t_rel, uv_err, uv_bad, same = _hold_hits(hk, hp)
     att_err = (ak - ap).abs()[:, same].max().item() if same.any() else 0.0
@@ -334,6 +348,12 @@ def _hold_casts(name, n, shade, occ, closest=None):
         line += (f'; closest index agree={c_agree:.6f} t max rel='
                  f'{c_rel:.2e} uv max abs={c_uv:.2e}')
         bad = bad or c_agree < MIN_AGREE or c_rel > T_RTOL or c_bad
+    if flat is not None:
+        f_agree = (flat == occ[1]).float().mean().item()
+        errs['any_flat'] = {'max_abs_err': float((flat != occ[1]).any()
+                                                 .item())}
+        line += f'; any_flat agree={f_agree:.6f}'
+        bad = bad or f_agree < MIN_AGREE
     print(line)
     if bad:
         raise AssertionError(f'{name}: kernel and plain disagree beyond '
@@ -341,17 +361,52 @@ def _hold_casts(name, n, shade, occ, closest=None):
     return errs
 
 
-def _compare(name, scene, ro, rd, avoid, tmax):
-    '''The three dense casts against their plain versions.'''
-    c, at = scene.face_coef, scene.face_attr
-    shade = (dense_cast.cast_shade(ro, rd, avoid, c, at),
-             dense_cast.cast_shade_plain(ro, rd, avoid, c, at))
-    occ = (dense_cast.cast_any(ro, rd, avoid, tmax, c),
-           dense_cast.cast_any_plain(ro, rd, avoid, tmax, c))
-    closest = (dense_cast.cast_closest(ro, rd, avoid, c),
-               dense_cast.cast_closest_plain(ro, rd, avoid, c))
+def _dense_tree(scene):
+    '''The dense casts' box tree: (fused_coef, fused_nodes, fused_order).'''
+    return scene.fused_coef, scene.fused_nodes, scene.fused_order
+
+
+def _compare(name, scene, ro, rd, avoid, tmax, flat=True):
+    '''The dense casts against their plain versions: the two tree casts
+    and, with flat, the two flat ones.'''
+    c, at, tree = scene.face_coef, scene.face_attr, _dense_tree(scene)
+    shade = (dense_cast.cast_shade(ro, rd, avoid, c, at, *tree),
+             dense_cast.cast_shade_plain(ro, rd, avoid, c, at, *tree))
+    occ = (dense_cast.cast_any(ro, rd, avoid, tmax, c, *tree),
+           dense_cast.cast_any_plain(ro, rd, avoid, tmax, c, *tree))
+    closest = any_flat = None
+    if flat:
+        closest = (dense_cast.cast_closest(ro, rd, avoid, c),
+                   dense_cast.cast_closest_plain(ro, rd, avoid, c))
+        any_flat = dense_cast.cast_any_flat(ro, rd, avoid, tmax, c)
     torch.cuda.synchronize()
-    return _hold_casts(name, ro.x.shape[0], shade, occ, closest)
+    return _hold_casts(name, ro.x.shape[0], shade, occ, closest, any_flat)
+
+
+def _lanes(scene, dims=DIMS):
+    '''The casts of one 512x512 wavefront sample (sample 9): path_trace's
+    lanes of the megakernel's twin.'''
+    lanes = []
+    fused.fused_trace_primary_plain(scene, sobol_block(9, dims), RES, RES,
+                                    lanes=lanes)
+    return lanes
+
+
+def _wavefront_batches(lanes):
+    '''(label, cast, made, (ro, rd, avoid, tmax)) of every cast batch in
+    lanes: each bounce's closest cast ('shade'; avoid the last hit, an
+    original face id; tmax 5 for the occlusion kernel) and its shadow
+    cast ('any'); made: the paths that make the cast (the rest are
+    parked).'''
+    out = []
+    for b, lane in enumerate(lanes):
+        out.append((f'b{b} closest', 'shade', lane['alive'],
+                    (lane['ro'], lane['rd'], lane['avoid'],
+                     torch.full_like(lane['ro'].x, 5.0))))
+        out.append((f'b{b} shadow', 'any', lane['shadow'],
+                    (lane['ro_sh'], lane['rd_sh'], lane['hit'].index,
+                     lane['tmax'])))
+    return out
 
 
 def _compare_blocked(name, scene, ro, rd, avoid, tmax):
@@ -385,6 +440,11 @@ def phase_kernels(tables, highpoly):
           f'u/v rtol {UV_RTOL} atol {UV_ATOL}, attrs atol {ATTR_ATOL}')
     runs = [(_compare, name, scene, _rays(rng, scene, n))
             for name, scene in tables.items() for n in (N_FULL, N_RAGGED)]
+    # the tree casts on the wavefront's own rays
+    for name in WAVEFRONT_SCENES:
+        for label, _, _, rays in _wavefront_batches(_lanes(tables[name])):
+            runs.append((lambda *a: _compare(*a, flat=False),
+                         f'{name} {label}', tables[name], rays))
     runs += [(_compare_blocked, 'cornell_highpoly', highpoly,
               _rays(rng, highpoly, n)) for n in (N_FULL, N_RAGGED)]
     runs.append((_compare_blocked, 'highpoly camera', highpoly,
@@ -446,6 +506,10 @@ def phase_megakernel(scenes):
             k = _stack(fused.fused_trace_primary(scene, pt, RES, RES))
             p = _stack(fused.fused_trace_primary_plain(scene, pt, RES, RES))
             err = max(err, _hold(name, f'primary s{sample}', k, p, relative))
+        pt = sobol_block(0, 2 + 6 * DEEP)
+        k = _stack(fused.fused_trace_primary(scene, pt, RES, RES))
+        p = _stack(fused.fused_trace_primary_plain(scene, pt, RES, RES))
+        err = max(err, _hold(name, f'depth {DEEP} s0', k, p, relative))
         pt = sobol_block(3, DIMS)
         full = _stack(fused.fused_trace_primary(scene, pt, RES, RES))
         halves = [_stack(fused.fused_trace_primary(
@@ -489,13 +553,14 @@ def _expect(**launches):
     return {**{k: 0 for k in _counts()}, **launches}
 
 
-def _render_wavefront(scene, film, start, spp):
+def _render_wavefront(scene, film, start, spp, depth=DEPTH):
     '''render() on the wavefront route: render_sample(fused=False).'''
     _, _, nx, ny = film.shape
     ii, jj = pixel_grid(nx, ny, device=film.device)
-    rot = pixel_rotation(ii, jj, DIMS)
+    rot = pixel_rotation(ii, jj, 2 + 6 * depth)
     for s in range(spp):
-        render_sample(scene, film, start + s, fused=False, rot=rot)
+        render_sample(scene, film, start + s, fused=False, max_depth=depth,
+                      rot=rot)
     return film
 
 
@@ -553,6 +618,16 @@ def phase_main(scenes, highpoly):
                lambda f, sc=scenes[name]: _render_wavefront(sc, f, 0, SPP),
                SPP, _expect(shade=DEPTH * SPP, any=DEPTH * SPP))
     out['wavefront'] = _counts()
+    # a depth above the first slices' cap through each dense route
+    monkey = scenes['cornell_monkey']
+    _zero_counts()
+    _drive(f'megakernel depth {DEEP}', 'cornell_monkey',
+           lambda f: render(monkey, f, 0, spp=DEEP_SPP, max_depth=DEEP),
+           DEEP_SPP, _expect(path=DEEP_SPP))
+    _zero_counts()
+    _drive(f'wavefront depth {DEEP}', 'cornell_monkey',
+           lambda f: _render_wavefront(monkey, f, 0, DEEP_SPP, DEEP),
+           DEEP_SPP, _expect(shade=DEEP * DEEP_SPP, any=DEEP * DEEP_SPP))
     _zero_counts()
     n = DEPTH * HIGHPOLY_SPP
     _drive('blocked wavefront', 'cornell_highpoly',
@@ -561,7 +636,6 @@ def phase_main(scenes, highpoly):
     out['blocked'] = _counts()
     # the table-level entry points on cornell_monkey's faces, packed per
     # call as in the reference
-    monkey = scenes['cornell_monkey']
     ro, rd, avoid = _camera_batch(monkey, RES)
     _zero_counts()
     hit = intersect.cast_closest(ro, rd, monkey.tri_w2b, avoid)
@@ -575,7 +649,7 @@ def phase_main(scenes, highpoly):
     print(f'[main] table-level cast_closest / cast_any, cornell_monkey '
           f'faces, {RES}x{RES} camera rays: hit {share:.4f}, occluded '
           f'before t=3 {occ.float().mean().item():.4f}, launches {grew}')
-    if not ok or grew != _expect(closest=1, any=1):
+    if not ok or grew != _expect(closest=1, any_flat=1):
         raise AssertionError(f'table-level casts: hit share {share}, '
                              f'launches {grew}')
     out['table'] = grew
@@ -803,17 +877,26 @@ def _time_calls(calls, plain_reps=10):
     return out
 
 
-def _kernel_times(scene, rays):
+def _kernel_times(scene, rays, flat):
+    """The dense casts' times at these rays: the two tree casts and, with
+    flat, the two flat ones (_time_calls; plain versions 3 calls)."""
     ro, rd, avoid, tmax = rays
-    c, at = scene.face_coef, scene.face_attr
-    return _time_calls({
-        'shade': (lambda: dense_cast.cast_shade(ro, rd, avoid, c, at),
-                  lambda: dense_cast.cast_shade_plain(ro, rd, avoid, c, at)),
-        'any': (lambda: dense_cast.cast_any(ro, rd, avoid, tmax, c),
-                lambda: dense_cast.cast_any_plain(ro, rd, avoid, tmax, c)),
-        'closest': (lambda: dense_cast.cast_closest(ro, rd, avoid, c),
-                    lambda: dense_cast.cast_closest_plain(ro, rd, avoid, c)),
-    })
+    c, at, tree = scene.face_coef, scene.face_attr, _dense_tree(scene)
+    calls = {
+        'shade': (lambda: dense_cast.cast_shade(ro, rd, avoid, c, at, *tree),
+                  lambda: dense_cast.cast_shade_plain(ro, rd, avoid, c, at,
+                                                      *tree)),
+        'any': (lambda: dense_cast.cast_any(ro, rd, avoid, tmax, c, *tree),
+                lambda: dense_cast.cast_any_plain(ro, rd, avoid, tmax, c,
+                                                  *tree))}
+    if flat:
+        calls['closest'] = (
+            lambda: dense_cast.cast_closest(ro, rd, avoid, c),
+            lambda: dense_cast.cast_closest_plain(ro, rd, avoid, c))
+        calls['any_flat'] = (
+            lambda: dense_cast.cast_any_flat(ro, rd, avoid, tmax, c),
+            lambda: dense_cast.cast_any_plain(ro, rd, avoid, tmax, c))
+    return _time_calls(calls, plain_reps=3)
 
 
 def _blocked_times(scene, rays):
@@ -845,20 +928,104 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _cast_bounds(scene, rays):
-    '''{dense kernel: (bound ms, bound_by)} at these rays: every ray
+def _flat_bounds(scene, rays):
+    """{flat dense kernel: (bound ms, bound_by)} at these rays: every ray
     against every live face, each input read once, each output written
-    once.'''
+    once.  Also the tree casts' all-faces bounds, kept for the record:
+    {'shade': ms, 'any': ms}."""
     ro, rd, avoid, tmax = rays
     n, nf = ro.x.shape[0], int(scene.nfaces)
     flops = FLOPS_PER_PAIR * n * nf
     rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
     coef_b = 64 * nf
     hit_b = n * (4 + 4 + 1 + 4 + 4)  # t, index, hit, u, v
-    return {'shade': _bound(flops, rays_b + coef_b + 72 * nf + hit_b
-                            + 24 * n),
-            'any': _bound(flops, rays_b + _nbytes(tmax) + coef_b + n),
-            'closest': _bound(flops, rays_b + coef_b + hit_b)}
+    flat = {'closest': _bound(flops, rays_b + coef_b + hit_b),
+            'any_flat': _bound(flops, rays_b + _nbytes(tmax) + coef_b + n)}
+    all_faces = {'shade': _bound(flops, rays_b + coef_b + 72 * nf + hit_b
+                                 + 24 * n)[0],
+                 'any': flat['any_flat'][0]}
+    return flat, all_faces
+
+
+def _tree_pairs(scene, ro, rd, avoid, tmax):
+    """The pair tests the dense tree casts need on these rays
+    (blocked.leaf_pairs over fused_nodes): the closest cast the live faces
+    of every leaf a ray enters at or before its hit; the occlusion cast
+    the nearest occluder's leaf if the ray is occluded, else every leaf
+    it enters before min(tmax, INF).  ([N], [N]) int64."""
+    nf, nodes = int(scene.nfaces), scene.fused_nodes
+    hit, _ = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
+                                   scene.face_attr, *_dense_tree(scene))
+    inf = torch.full_like(hit.t, float('inf'))
+    closest = blocked.leaf_pairs(ro, rd, nodes, nf,
+                                 torch.where(hit.hit, hit.t, inf), True)
+    slot = torch.argsort(scene.fused_order.long())  # of each face id
+    leaf = slot[torch.clamp_min(hit.index, 0).long()] // blocked.LEAF_FACES
+    live = torch.clamp(nf - blocked.LEAF_FACES * leaf, 0, blocked.LEAF_FACES)
+    occ = hit.hit & (hit.t < tmax)
+    shadow = torch.where(occ, live, blocked.leaf_pairs(
+        ro, rd, nodes, nf, torch.clamp_max(tmax, 1e6), False))
+    return closest, shadow
+
+
+def _visits_line(vis):
+    """(inner nodes, leaves, a warp's slowest leaves) means of [N, 2]
+    walk counters, warps of 32 consecutive rays."""
+    v = vis.float()
+    n = v.shape[0] // 32 * 32
+    return (v[:, 0].mean().item(), v[:, 1].mean().item(),
+            v[:n, 1].reshape(-1, 32).amax(1).mean().item())
+
+
+def _dense_bounds(card, name, scene, rays, lanes):
+    """{tree cast: (bound ms, bound_by)} at the timed rays, from the pairs
+    they need (_tree_pairs), the bytes each input read once and each
+    output written once; printed beside the all-faces count, the tree
+    nodes and leaves the kernels visit (dense_cast_visits), and, given the
+    wavefront's lanes, the pairs and visits of its own casts.  Returns
+    (bounds, {cast: visits line})."""
+    ro, rd, avoid, tmax = rays
+    n, nf = ro.x.shape[0], int(scene.nfaces)
+    c, at, tree = scene.face_coef, scene.face_attr, _dense_tree(scene)
+    closest, shadow = _tree_pairs(scene, ro, rd, avoid, tmax)
+    vis = dense_cast.dense_cast_visits(ro, rd, avoid, tmax, c, at, *tree)
+    rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
+    tree_b = _nbytes(*tree)
+    out, visits = {}, {}
+    for k, pairs, nbytes, v in (
+            ('shade', closest, rays_b + 136 * nf + tree_b + n * (17 + 24),
+             vis[0]),
+            ('any', shadow, rays_b + _nbytes(tmax) + tree_b + n, vis[1])):
+        total = int(pairs.sum())
+        out[k] = _bound(FLOPS_PER_PAIR * total, nbytes)
+        visits[k] = _visits_line(v)
+        print(f'[bound] {card} | {k}_kernel {name} {n} random rays: needs '
+              f'{total / n:.2f} pairs a ray ({total} in all) -> '
+              f'{out[k][0]:.5f} ms by {out[k][1]} [all {nf} faces: '
+              f'{_bound(FLOPS_PER_PAIR * n * nf, nbytes)[0]:.5f} ms]')
+        print(f'[visits] {card} | {k}_kernel {name} {n} random rays: '
+              f'{visits[k][0]:.2f} inner nodes, {visits[k][1]:.3f} leaves '
+              f'({blocked.LEAF_FACES * visits[k][1]:.1f} face slots) a '
+              f'ray, a warp\'s slowest ray {visits[k][2]:.2f} leaves')
+    if lanes is None:
+        return out, visits
+    casts = {'shade': [0, 0, 0.0, 0.0], 'any': [0, 0, 0.0, 0.0]}
+    for _, k, made, wrays in _wavefront_batches(lanes):
+        pairs = _tree_pairs(scene, *wrays)[k != 'shade']
+        v = dense_cast.dense_cast_visits(*wrays, c, at, *tree)[k != 'shade']
+        v = v.float()
+        casts[k][0] += int(made.sum())
+        casts[k][1] += int(pairs[made].sum())
+        casts[k][2] += v[made, 0].sum().item()
+        casts[k][3] += v[made, 1].sum().item()
+    for k, (m, pairs, inner, leaves) in casts.items():
+        print(f'[bound] {card} | {k}_kernel {name} wavefront {RES}x{RES} '
+              f'sample 9, {m} casts in {DEPTH} bounces: needs '
+              f'{pairs / m:.2f} pairs a cast [all {nf} faces]; the kernel '
+              f'visits {inner / m:.2f} inner nodes and {leaves / m:.3f} '
+              f'leaves a cast ({blocked.LEAF_FACES * leaves / m:.1f} face '
+              f'slots)')
+    return out, visits
 
 
 def _blocked_bounds(card, scene, rays):
@@ -1140,18 +1307,34 @@ def _print_kernel_times(card, name, n, times):
 
 
 def phase_timings(card, scenes, tables, highpoly):
+    '''The kernels' times and bounds, and the routes' samples/s.  Returns
+    (kernel times {table: {kernel: times}}, megakernel times {scene:
+    times}, bounds {table or 'path...': ...}); a dense table's bounds
+    hold its tree casts' needed-pairs bounds, their all-faces bounds
+    ('all_faces'), their visits ('visits') and, on cornell and
+    cornell_monkey, the flat casts' bounds.'''
     rng = np.random.RandomState(7)
     kt, bounds = {}, {}
-    for name in ('cornell', 'cornell_monkey'):
+    # the two cornells first, then highpoly, then the rest: the earlier
+    # PRs' rays
+    order = ['cornell', 'cornell_monkey', 'cornell_highpoly'] + [
+        k for k in tables if k not in ('cornell', 'cornell_monkey')]
+    for name in order:
+        if name == 'cornell_highpoly':
+            rays = _rays(rng, highpoly, N_FULL)
+            kt[name] = _blocked_times(highpoly, rays)
+            _print_kernel_times(card, name, N_FULL, kt[name])
+            bounds[name] = _blocked_bounds(card, highpoly, rays)
+            continue
+        flat = name in ('cornell', 'cornell_monkey')
         rays = _rays(rng, tables[name], N_FULL)
-        kt[name] = _kernel_times(tables[name], rays)
+        kt[name] = _kernel_times(tables[name], rays, flat)
         _print_kernel_times(card, name, N_FULL, kt[name])
-        bounds[name] = _cast_bounds(tables[name], rays)
-    rays = _rays(rng, highpoly, N_FULL)
-    kt['cornell_highpoly'] = _blocked_times(highpoly, rays)
-    _print_kernel_times(card, 'cornell_highpoly', N_FULL,
-                        kt['cornell_highpoly'])
-    bounds['cornell_highpoly'] = _blocked_bounds(card, highpoly, rays)
+        lanes = _lanes(tables[name]) if name in TREE_SCENES else None
+        tree, visits = _dense_bounds(card, name, tables[name], rays, lanes)
+        flat_b, all_faces = _flat_bounds(tables[name], rays)
+        bounds[name] = {**tree, **(flat_b if flat else {}),
+                        'all_faces': all_faces, 'visits': visits}
     path_bounds = {name: _path_bound(card, name, scene)
                    for name, scene in scenes.items()}
     bounds['path'] = {k: v[0] for k, v in path_bounds.items()}
@@ -1199,13 +1382,13 @@ def main():
     phase_golden(scenes)
     kt, pk, bounds = phase_timings(card, scenes, tables, highpoly)
 
-    # launches per sample of each kernel's route: the dense casts on the
-    # wavefront (fused=False) scenes, the megakernel on the five, the
-    # blocked casts on cornell_highpoly; the closest kernel is table level
+    # launches per sample of each kernel's route: the dense tree casts on
+    # the wavefront (fused=False) scenes, the megakernel on the five, the
+    # blocked casts on cornell_highpoly; the flat casts are table level
     per_sample = {
         'shade': counts['wavefront']['shade'] / (SPP * len(WAVEFRONT_SCENES)),
         'any': counts['wavefront']['any'] / (SPP * len(WAVEFRONT_SCENES)),
-        'closest': 0,
+        'closest': 0, 'any_flat': 0,
         'path': counts['megakernel']['path'] / (SPP * len(SCENES)),
         'blocked_shade': counts['blocked']['blocked_shade'] / HIGHPOLY_SPP,
         'blocked_any': counts['blocked']['blocked_any'] / HIGHPOLY_SPP}
@@ -1221,12 +1404,18 @@ def main():
     def cast_entry(k, source, launches, scene, **extra):
         return entry(k, source, launches, *kt[scene][k][:3],
                      bounds[scene][k], **extra)
-    kernels = [cast_entry(k, KERNEL_SOURCE, counts['wavefront'][k],
-                          'cornell', ms_monkey=kt['cornell_monkey'][k][0],
-                          plain_ms_monkey=kt['cornell_monkey'][k][1],
-                          call_ms_monkey=kt['cornell_monkey'][k][2],
-                          bound_ms_monkey=bounds['cornell_monkey'][k][0])
-               for k in ('shade', 'any')]
+    # the tree casts: cornell_monkey's numbers, and every table's
+    dense = [k for k in kt if k != 'cornell_highpoly']
+    kernels = [cast_entry(
+        k, KERNEL_SOURCE, counts['wavefront'][k], 'cornell_monkey',
+        ms_by_scene={t: kt[t][k][0] for t in dense},
+        plain_ms_by_scene={t: kt[t][k][1] for t in dense},
+        call_ms_by_scene={t: kt[t][k][2] for t in dense},
+        bound_ms_by_scene={t: bounds[t][k][0] for t in dense},
+        bound_ms_all_faces_by_scene={t: bounds[t]['all_faces'][k]
+                                     for t in dense},
+        visits_by_scene={t: bounds[t]['visits'][k] for t in dense})
+        for k in ('shade', 'any')]
     kernels.append(entry(
         'path', PATH_SOURCE, counts['megakernel']['path'], *pk['cornell'],
         bounds['path']['cornell'],
@@ -1235,11 +1424,12 @@ def main():
         bound_ms_by_scene={k: v[0] for k, v in bounds['path'].items()},
         bound_ms_all_faces_by_scene=bounds['path_all_faces'],
         visits_per_cast_by_scene=bounds['path_visits']))
-    kernels.append(cast_entry(
-        'closest', KERNEL_SOURCE, counts['table']['closest'], 'cornell',
-        ms_monkey=kt['cornell_monkey']['closest'][0],
-        plain_ms_monkey=kt['cornell_monkey']['closest'][1],
-        bound_ms_monkey=bounds['cornell_monkey']['closest'][0]))
+    kernels += [cast_entry(
+        k, KERNEL_SOURCE, counts['table'][k], 'cornell',
+        ms_monkey=kt['cornell_monkey'][k][0],
+        plain_ms_monkey=kt['cornell_monkey'][k][1],
+        bound_ms_monkey=bounds['cornell_monkey'][k][0])
+        for k in ('closest', 'any_flat')]
     kernels += [cast_entry(k, BLOCKED_SOURCE, counts['blocked'][k],
                            'cornell_highpoly')
                 for k in ('blocked_shade', 'blocked_any')]

@@ -23,10 +23,11 @@ Disney shading, lights and textures, in both routes:
     for eligible scenes on the card;
   * the wavefront (engine/path.py) with the two dense casts
     (intersect/dense_cast.py, csrc/dense_cast.cu: closest hit +
-    attributes, and occlusion) or, on big scenes, the two blocked casts
-    (intersect/blocked.py, csrc/blocked_cast.cu);
-and the table-level intersect.cast_closest / cast_any (the closest kernel
-of csrc/dense_cast.cu).
+    attributes, and occlusion, both walking the scene's box tree) or, on
+    big scenes, the two blocked casts (intersect/blocked.py,
+    csrc/blocked_cast.cu);
+and the table-level intersect.cast_closest / cast_any (the flat
+closest_kernel and any_flat_kernel of csrc/dense_cast.cu).
 '''
 
 __version__ = '0.1.0'

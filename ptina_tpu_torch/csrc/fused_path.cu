@@ -62,8 +62,7 @@ namespace ptina {
 namespace {
 
 constexpr int kBlock = 128;  // paths per block
-constexpr int kMaxDims = 32;  // the primary head's Sobol point
-constexpr int kTreeStack = 9;  // log2(256 leaves at 8192 faces) + 1
+constexpr int kMaxDims = 98;  // the primary head's Sobol point: sobol.MAX_DIMS
 constexpr unsigned kGold = 0x9e3779b9u;
 constexpr float kTwoPowM32 = static_cast<float>(1.0 / 4294967296.0);
 
@@ -240,7 +239,7 @@ __device__ __forceinline__ int closest_key(const PtinaPathParams& p,
                                            int* slot, int2* visits) {
   int best = kKeyMiss;
   int best_slot = -1;
-  walk_tree<kTreeStack, kBoxes>(
+  walk_tree<kDenseStack, kBoxes>(
       r, p.nodes, p.tree_p,
       // a box whose every hit is strictly beyond the running best on the
       // key's t grid (KEY_MISS keeps every box in play)
@@ -280,7 +279,7 @@ __device__ __forceinline__ bool occluded(const PtinaPathParams& p,
                                          const Ray& r, int avoid, float tmax,
                                          int2* visits) {
   bool occ = false;
-  walk_tree<kTreeStack, kBoxes>(
+  walk_tree<kDenseStack, kBoxes>(
       r, p.nodes, p.tree_p, [&](float entry) { return entry >= tmax; },
       [&](int l) {
         const int base = l * kLeafFaces;

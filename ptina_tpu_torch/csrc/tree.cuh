@@ -1,5 +1,6 @@
 // The box-tree walk the port's tree kernels share: the blocked casts
-// (blocked_cast.cu) and the path megakernel's two casts (fused_path.cu).
+// (blocked_cast.cu), the path megakernel's two casts (fused_path.cu) and
+// the dense scene-level casts (dense_cast.cu).
 //
 // A tree is nodes [2P, 8] (scene.py: compute_node_bounds): an implicit
 // complete binary tree in heap layout over leaves of 32 consecutive faces
@@ -12,6 +13,9 @@
 namespace ptina {
 
 constexpr int kLeafFaces = 32;  // blocked.LEAF_FACES
+// the walk's stack over a dense-route table: log2(256 leaves at 8192
+// faces) + 1
+constexpr int kDenseStack = 9;
 
 // Conservative slab test of the ray against node k's box (two float4:
 // lo.xyz hi.x, hi.yz 0 0): false when no point of the box lies ahead of

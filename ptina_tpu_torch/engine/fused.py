@@ -32,8 +32,8 @@ wavefront with the blocked casts, as the reference's do (fused.py:84).  The kern
 through the L1/L2 caches from device memory, so the reference's VMEM caps
 (MAX_FUSED_TEX_BYTES / MAX_FUSED_TEX_BINDINGS) have no counterpart: any
 atlas, binding, material or light count fits.  The primary head's depth
-is at most 5: its Sobol point has at most sampling/sobol.MAX_DIMS = 32
-dimensions.
+is at most 16: its Sobol point rides in the launch parameters and has at
+most sampling/sobol.MAX_DIMS = 98 dimensions (the reference has no cap).
 
 Tables: the kernel reads the scene's tensors as they are — the face
 tables face_coef [F, 16] / face_attr [F, 18] built once per scene, the
@@ -237,7 +237,7 @@ def _primary_params(scene, pt, nx, ny, x0, y0, fnx, fny):
     dims = pt.shape[0]
     if dims > MAX_DIMS or dims < 2 or (dims - 2) % 6:
         raise ValueError(f'Sobol point of {dims} dims: the primary head '
-                         f'takes 2 + 6 depth <= {MAX_DIMS}')
+                         f'takes 2 + 6 depth <= MAX_DIMS = {MAX_DIMS}')
     n = nx * ny
     out = torch.empty((3, n), dtype=torch.float32, device=scene.device)
     p = _params(scene, n, (dims - 2) // 6, out)

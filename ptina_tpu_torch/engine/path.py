@@ -16,14 +16,17 @@ uniform block: 2 lens dims, then per bounce 3 for the light sample and 3
 for the BSDF sample.  No RNG is drawn: the uniforms are rotated Sobol.
 
 render_sample routes as the reference does (ptina_tpu/engine/path.py:
-211-223): fused=None takes the path megakernel (engine/fused.py, one
-launch per sample) for the Disney model on a fused_eligible scene (a
-dense-route scene on a CUDA device) and the wavefront otherwise, whose
-casts route by the scene (intersect/dispatch.py: the blocked two-level
-casts for big or accel='blocked' scenes);
-fused=True takes the megakernel (on the CPU its plain twin, which equals
-the wavefront bit for bit); fused=False the wavefront.  No gradients flow
-in this slice.
+211-230): the path megakernel (engine/fused.py, one launch per sample)
+evaluates the Disney BSDF only, so every other model renders the
+wavefront whatever `fused` says.  For the Disney model fused=None takes
+the megakernel on a fused_eligible scene (a dense-route scene on a CUDA
+device) and the wavefront otherwise; fused=True takes the megakernel (on
+the CPU its plain twin, which equals the wavefront bit for bit);
+fused=False the wavefront.  The wavefront's casts route by the scene
+(intersect/dispatch.py: the dense casts walk the scene's box tree, the
+blocked two-level casts take big or accel='blocked' scenes).  max_depth
+is at most 16 on both routes (sampling/sobol.MAX_DIMS).  No gradients
+flow in this slice.
 '''
 
 import torch
@@ -166,13 +169,12 @@ def pixel_grid(nx, ny, x0=0, y0=0, device='cuda'):
 
 
 def _takes_fused(scene, fused, model):
-    '''The route of render_sample: True for the megakernel.'''
+    '''The route of render_sample: True for the megakernel, which only
+    the Disney model takes (the reference's rule, path.py:211-230).'''
     from ptina_tpu_torch.engine.fused import fused_eligible
-    if fused is None:
-        return model == 'disney' and fused_eligible(scene)
-    if fused and model != 'disney':
-        raise ValueError('the megakernel evaluates the Disney BSDF only')
-    return bool(fused)
+    if model != 'disney':
+        return False
+    return fused_eligible(scene) if fused is None else bool(fused)
 
 
 def render_sample(scene, film, sample_index, fused=None, model='disney',
@@ -180,8 +182,9 @@ def render_sample(scene, film, sample_index, fused=None, model='disney',
     '''Accumulate one progressive sample over the whole film into pass 0,
     in place; returns the film.
 
-    fused: None = the megakernel where the scene is eligible, else the
-    wavefront; True = the megakernel; False = the wavefront (module
+    fused: for the Disney model, None = the megakernel where the scene is
+    eligible, else the wavefront; True = the megakernel; False = the
+    wavefront.  Any other model renders the wavefront (module
     docstring).  rot: optional precomputed pixel_rotation for the
     wavefront — pass it from per-sample loops.  The reference's tile
     offsets (x0, y0, full_res) serve its tiled and distributed engines and

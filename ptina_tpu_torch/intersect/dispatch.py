@@ -6,16 +6,19 @@ Reference: ptina_tpu/intersect/dispatch.py.  The scene-level casts
 (`cast_shaded`, `cast_shadow`) route by the reference's rule (route,
 dispatch.py:41-53, its 'pallas' read as 'dense'): accel='blocked', or more
 than MAX_DENSE_FACES faces under accel='auto', takes the blocked two-level
-cast (intersect/blocked.py); every other scene the dense single-pass casts
-(intersect/dense_cast.py).  accel='dense' above MAX_DENSE_FACES is the
-reference's XLA brute route, which is not ported: it raises
-NotImplementedError.  Each route's wrappers pick the CUDA kernel or the
-plain torch version by the tensors' device.
+cast (intersect/blocked.py); every other scene the dense casts
+(intersect/dense_cast.py: cast_shade / cast_any), whose kernels walk the
+scene's box tree (fused_coef, fused_nodes, fused_order; scene.py).
+accel='dense' above MAX_DENSE_FACES is the reference's XLA brute route,
+which is not ported: it raises NotImplementedError.  Each route's
+wrappers pick the CUDA kernel or the plain torch version by the tensors'
+device.
 
 The table-level `cast_closest` / `cast_any` (dispatch.py:66-77) pack the
-face table per call, as the reference does, and run the dense casts; above
-MAX_DENSE_FACES faces the reference takes brute there too, which raises
-here for the same reason.
+face table per call, as the reference does, and run the flat dense casts
+(dense_cast.cast_closest / cast_any_flat), which test every face: a bare
+table has no tree.  Above MAX_DENSE_FACES faces the reference takes brute
+there too, which raises here for the same reason.
 
 Rays are SoA V3 rows; results are dense [N] rows.
 '''
@@ -60,6 +63,11 @@ def _route(scene):
     return route(scene.face_coef.shape[0], scene.accel)
 
 
+def _tree(scene):
+    '''The dense casts' box tree: (fused_coef, fused_nodes, fused_order).'''
+    return scene.fused_coef, scene.fused_nodes, scene.fused_order
+
+
 def _as_v3(a):
     '''V3 rays as they are; an [N, 3] tensor split into rows.'''
     if isinstance(a, V3):
@@ -84,8 +92,8 @@ def cast_closest(ro, rd, tri_w2b, avoid):
 def cast_any(ro, rd, tri_w2b, avoid, tmax):
     '''Occlusion against a face table tri_w2b [F, 3, 4] (packed per call):
     [N] bool.'''
-    return dense_cast.cast_any(_as_v3(ro), _as_v3(rd), avoid, tmax,
-                               _table(tri_w2b))
+    return dense_cast.cast_any_flat(_as_v3(ro), _as_v3(rd), avoid, tmax,
+                                    _table(tri_w2b))
 
 
 def cast_shadow(scene, ro, rd, avoid, tmax):
@@ -94,7 +102,8 @@ def cast_shadow(scene, ro, rd, avoid, tmax):
         return blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
                                         scene.block_bounds,
                                         scene.node_bounds)
-    return dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef)
+    return dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef,
+                               *_tree(scene))
 
 
 def cast_shaded(scene, ro, rd, avoid):
@@ -107,7 +116,7 @@ def cast_shaded(scene, ro, rd, avoid):
             scene.block_bounds, scene.node_bounds)
     else:
         hit, attrs = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
-                                           scene.face_attr)
+                                           scene.face_attr, *_tree(scene))
     normal = vnormalize(V3(attrs[0], attrs[1], attrs[2]))
     mtlid = torch.where(hit.hit, torch.round(attrs[5]).to(torch.int32), -1)
     return hit, normal, attrs[3], attrs[4], mtlid

@@ -27,12 +27,15 @@ complete binary tree over leaves of LEAF_FACES consecutive faces
 MAX_DENSE_FACES (the reference's XLA brute route) is not ported and
 raises NotImplementedError.
 
-Dense-route scenes carry a second tree of the port's own, the one the path
-megakernel walks (engine/fused.py): fused_order, the faces re-ordered for
-it (fused_face_order), fused_coef, their face_coef rows in that order, and
-fused_nodes, compute_node_bounds over that order.  The scene's own tables
-and face ids stay in build order: the kernel keys and gathers by the
-original id.  Blocked-route scenes carry these three with zero rows.
+Dense-route scenes carry a second tree of the port's own (dense_tree), the
+one every dense-route cast kernel walks: the path megakernel's two casts
+(engine/fused.py) and the wavefront's scene-level casts
+(intersect/dense_cast.py: cast_shade, cast_any).  fused_order holds the
+faces re-ordered for it (fused_face_order), fused_coef their face_coef
+rows in that order, and fused_nodes compute_node_bounds over that order.
+The scene's own tables and face ids stay in build order: the kernels key
+and gather by the original id.  Blocked-route scenes carry these three
+with zero rows.
 '''
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'make_materials', 'make_lights', 'make_textures',
            'scene_from_numpy', 'precompute_tri_functionals',
            'pack_corner_attrs', 'morton_face_order', 'compute_block_bounds',
-           'compute_node_bounds', 'fused_face_order', 'DEFAULT_MATERIAL',
+           'compute_node_bounds', 'fused_face_order', 'dense_tree',
+           'DEFAULT_MATERIAL',
            'MATERIAL_PARAMS', 'LIGHT_POINT', 'LIGHT_AREA', 'MAX_DENSE_FACES',
            'BLOCK_FACES', 'LEAF_FACES', 'MAX_BLOCKS']
 
@@ -130,7 +134,8 @@ class Scene:
     face_attr: torch.Tensor  # [F, 18] f32
     block_bounds: torch.Tensor  # [ceil(F / BLOCK_FACES), 8] f32 boxes
     node_bounds: torch.Tensor   # [2 * P, 8] f32 box tree (compute_node_bounds)
-    # the megakernel's box tree (dense route; zero rows on the blocked one)
+    # the dense casts' and the megakernel's box tree (dense_tree; zero rows
+    # on the blocked route)
     fused_order: torch.Tensor   # [F] int32 face id of each tree slot
     fused_coef: torch.Tensor    # [F, 16] f32 face_coef[fused_order]
     fused_nodes: torch.Tensor   # [2 * P, 8] f32 tree over fused_order
@@ -261,7 +266,7 @@ def compute_node_bounds(tri_pos, nfaces):
 
 
 def fused_face_order(tri_pos, nfaces):
-    '''The face order of the megakernel's box tree over the padded table
+    '''The face order of the dense box tree (dense_tree) over the padded table
     tri_pos [F, 3, 3]: the live faces whose box's largest extent exceeds
     a quarter of the scene box's largest extent first, in index order,
     then the other live faces in Morton order, then the padding.  A
@@ -281,6 +286,18 @@ def fused_face_order(tri_pos, nfaces):
         rest = rest[morton_face_order(live[rest])]
     return np.concatenate([np.flatnonzero(large), rest,
                            np.arange(nfaces, f)]).astype(np.int64)
+
+
+def dense_tree(tri_pos, nfaces, coef):
+    '''The box tree of a dense-route face table: (fused_coef [F, 16],
+    fused_nodes [2P, 8], fused_order [F] int32) for the padded positions
+    tri_pos [F, 3, 3] (numpy) with nfaces live faces and their coef rows
+    [F, 16] (torch, plucker.pack_faces).  Host tensors.'''
+    pos = np.asarray(tri_pos)
+    order = fused_face_order(pos, int(nfaces))
+    nodes = compute_node_bounds(pos[order], int(nfaces))
+    return (coef[torch.from_numpy(order)], torch.from_numpy(nodes),
+            torch.from_numpy(order.astype(np.int32)))
 
 
 def make_materials(materials=None, max_materials=None,
@@ -404,11 +421,11 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
     bounds = compute_block_bounds(pos, int(nfaces))
     nodes = compute_node_bounds(pos, int(nfaces))
     if route(pos.shape[0], accel) == 'dense':
-        order = fused_face_order(pos, int(nfaces))
-        fused_nodes = compute_node_bounds(pos[order], int(nfaces))
-    else:  # the megakernel does not take the blocked route
-        order = np.zeros(0, np.int64)
-        fused_nodes = np.zeros((0, 8), np.float32)
+        fused_coef, fused_nodes, order = dense_tree(pos, nfaces, coef)
+    else:  # no dense cast takes the blocked route
+        fused_coef = coef[:0]
+        fused_nodes = torch.zeros((0, 8), dtype=torch.float32)
+        order = torch.zeros(0, dtype=torch.int32)
 
     def dev(x):
         if isinstance(x, np.ndarray):
@@ -426,8 +443,7 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
         cam_w2v=dev(np.asarray(cam_w2v, np.float32)),
         face_coef=dev(coef), face_attr=dev(attr), block_bounds=dev(bounds),
         node_bounds=dev(nodes),
-        fused_order=dev(order.astype(np.int32)),
-        fused_coef=dev(coef[torch.from_numpy(order)]),
+        fused_order=dev(order), fused_coef=dev(fused_coef),
         fused_nodes=dev(fused_nodes), accel=accel,
         world_tex_id=int(world_tex_id))
 

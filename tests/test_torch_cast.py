@@ -3,7 +3,9 @@ Parity of the PyTorch port's dense casts (ptina_tpu_torch.intersect:
 dense_cast's plain versions, the twins of its CUDA kernels, and dispatch)
 with the JAX reference's Pallas kernels run in interpret mode
 (pallas_cast_shade / pallas_cast_any, as tests/test_intersect.py runs
-them), and of the port's brute oracle with the JAX brute oracle.
+them), and of the port's brute oracle with the JAX brute oracle.  The
+scene-level casts take the table's box tree (scene.dense_tree), which
+their plain versions do not read.
 
 Tolerances (the reference's own, test_intersect.py:127-170):
   * hit flag, winner index and occlusion bit: exact;
@@ -30,7 +32,7 @@ from ptina_tpu_torch.intersect import brute as tbrute
 from ptina_tpu_torch.intersect import blocked, dense_cast, dispatch
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.plucker import pack_faces, key_mask_for
-from ptina_tpu_torch.scene import scene_from_numpy
+from ptina_tpu_torch.scene import dense_tree, scene_from_numpy
 
 from test_torch_scene import jax_scene_arrays
 
@@ -49,26 +51,30 @@ def _rays(o, d):
 
 class Table:
     '''One face table in both packages: JAX tri_w2b / corner attrs and
-    the port's per-face kernel tables built from the same numbers.'''
+    the port's per-face kernel tables and box tree built from the same
+    numbers (tris: the [F, 3, 3] positions).'''
 
-    def __init__(self, tri_w2b, attrs):
+    def __init__(self, tri_w2b, attrs, tris):
         self.jw2b = jnp.asarray(tri_w2b)
         self.jattrs = jnp.asarray(attrs)
         self.tw2b = torch.from_numpy(np.array(tri_w2b))
         self.coef, self.attr = pack_faces(self.tw2b,
                                           torch.from_numpy(np.array(attrs)))
+        self.tree = dense_tree(np.asarray(tris, np.float32),
+                               self.coef.shape[0], self.coef)
 
 
 def _random_table(rng, nf, scale=2.0):
     tris = (rng.randn(nf, 3, 3) * scale).astype(np.float32)
     w2b = np.asarray(jfunctionals(jnp.asarray(tris)))
     attrs = rng.uniform(-1.0, 1.0, (18, nf)).astype(np.float32)
-    return Table(w2b, attrs)
+    return Table(w2b, attrs, tris)
 
 
 def _cornell_table():
     s = jcornell_box()
-    return Table(np.asarray(s.tri_w2b), np.asarray(s.tri_attrs))
+    return Table(np.asarray(s.tri_w2b), np.asarray(s.tri_attrs),
+                 np.asarray(s.tri_pos))
 
 
 def _random_rays(rng, n, box=False):
@@ -88,7 +94,8 @@ def _compare_shade(table, o, d, avoid):
                                      jnp.asarray(avoid), table.jattrs,
                                      interpret=True)
     got, got_att = dense_cast.cast_shade(
-        tro, trd, torch.from_numpy(avoid), table.coef, table.attr)
+        tro, trd, torch.from_numpy(avoid), table.coef, table.attr,
+        *table.tree)
     hit = np.asarray(ref.hit)
     np.testing.assert_array_equal(got.hit.numpy(), hit)
     np.testing.assert_array_equal(got.index.numpy(), np.asarray(ref.index))
@@ -111,7 +118,11 @@ def _compare_any(table, o, d, avoid, tmax):
     ref = pallas_cast_any(jro, jrd, table.jw2b, jnp.asarray(avoid),
                           jnp.asarray(tmax), interpret=True)
     got = dense_cast.cast_any(tro, trd, torch.from_numpy(avoid),
-                              torch.from_numpy(tmax), table.coef)
+                              torch.from_numpy(tmax), table.coef,
+                              *table.tree)
+    flat = dense_cast.cast_any_flat(tro, trd, torch.from_numpy(avoid),
+                                    torch.from_numpy(tmax), table.coef)
+    assert torch.equal(flat, got)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     return np.asarray(ref)
 
@@ -159,7 +170,7 @@ def test_any_plain_matches_pallas_interpret(case):
 
 def _one_triangle(z=0.0):
     tri = np.asarray([[[-1, -1, z], [1, -1, z], [0, 1, z]]], np.float32)
-    return np.asarray(jfunctionals(jnp.asarray(tri)))
+    return tri, np.asarray(jfunctionals(jnp.asarray(tri)))
 
 
 def test_far_clip_hit_is_miss():
@@ -167,7 +178,7 @@ def test_far_clip_hit_is_miss():
     tris = np.asarray([[[-4e6, -4e6, 2e6], [4e6, -4e6, 2e6],
                         [0.0, 4e6, 2e6]]], np.float32)
     table = Table(np.asarray(jfunctionals(jnp.asarray(tris))),
-                  np.ones((18, 1), np.float32))
+                  np.ones((18, 1), np.float32), tris)
     o = np.zeros((8, 3))
     d = np.tile([[0.0, 0.0, 1.0]], (8, 1))
     avoid = np.full(8, -1, np.int32)
@@ -178,7 +189,8 @@ def test_far_clip_hit_is_miss():
 
 
 def test_avoid_excludes_face():
-    table = Table(_one_triangle(), np.ones((18, 1), np.float32))
+    table = Table(_one_triangle()[1], np.ones((18, 1), np.float32),
+                  _one_triangle()[0])
     o = np.asarray([[0.0, 0.0, -2.0]] * 2)
     d = np.asarray([[0.0, 0.0, 1.0]] * 2)
     hit = _compare_shade(table, o, d, np.asarray([-1, 0], np.int32))
@@ -190,8 +202,9 @@ def test_avoid_excludes_face():
 
 def test_zero_padding_faces_never_hit():
     w2b = np.zeros((4, 3, 4), np.float32)
-    w2b[0] = _one_triangle()[0]
-    table = Table(w2b, np.arange(72, dtype=np.float32).reshape(18, 4))
+    tris = np.zeros((4, 3, 3), np.float32)
+    tris[:1], w2b[:1] = _one_triangle()
+    table = Table(w2b, np.arange(72, dtype=np.float32).reshape(18, 4), tris)
     o = np.asarray([[0.0, 0.0, -2.0], [0.0, 0.0, 2.0], [5.0, 5.0, -2.0]])
     d = np.asarray([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 0.0, 1.0]])
     hit = _compare_shade(table, o, d, np.full(3, -1, np.int32))
@@ -204,7 +217,8 @@ def test_zero_padding_faces_never_hit():
 def test_parked_shadow_ray_never_occludes():
     '''The integrator parks dead lanes at origin 0, +z, tmax 0: even with
     a face straight ahead they must not occlude.'''
-    table = Table(_one_triangle(z=1.0), np.ones((18, 1), np.float32))
+    tri, w2b = _one_triangle(z=1.0)
+    table = Table(w2b, np.ones((18, 1), np.float32), tri)
     o = np.zeros((2, 3))
     d = np.tile([[0.0, 0.0, 1.0]], (2, 1))
     occ = _compare_any(table, o, d, np.full(2, -1, np.int32),
@@ -274,8 +288,12 @@ def test_cpu_casts_launch_no_kernel():
     table = _cornell_table()
     _, (tro, trd) = _rays(*_random_rays(np.random.RandomState(1), 64, True))
     avoid = torch.full((64,), -1, dtype=torch.int32)
-    dense_cast.cast_shade(tro, trd, avoid, table.coef, table.attr)
-    dense_cast.cast_any(tro, trd, avoid, torch.ones(64), table.coef)
+    dense_cast.cast_shade(tro, trd, avoid, table.coef, table.attr,
+                          *table.tree)
+    dense_cast.cast_any(tro, trd, avoid, torch.ones(64), table.coef,
+                        *table.tree)
+    dense_cast.cast_any_flat(tro, trd, avoid, torch.ones(64), table.coef)
+    dense_cast.cast_closest(tro, trd, avoid, table.coef)
     assert dense_cast.LAUNCHES == before
 
 
@@ -284,14 +302,19 @@ def test_wrappers_validate_operands():
     _, (tro, trd) = _rays(*_random_rays(np.random.RandomState(1), 16, True))
     avoid = torch.full((16,), -1, dtype=torch.int32)
     with pytest.raises(ValueError, match='avoid'):
-        dense_cast.cast_shade(tro, trd, avoid.long(), table.coef, table.attr)
+        dense_cast.cast_shade(tro, trd, avoid.long(), table.coef, table.attr,
+                              *table.tree)
     with pytest.raises(ValueError, match='coef'):
         dense_cast.cast_shade(tro, trd, avoid, table.coef.double(),
-                              table.attr)
+                              table.attr, *table.tree)
     with pytest.raises(ValueError, match='attr'):
-        dense_cast.cast_shade(tro, trd, avoid, table.coef, table.attr[:, :6])
+        dense_cast.cast_shade(tro, trd, avoid, table.coef, table.attr[:, :6],
+                              *table.tree)
     with pytest.raises(ValueError, match='ray rows'):
-        dense_cast.cast_any(tro, trd, avoid, torch.ones(15), table.coef)
+        dense_cast.cast_any(tro, trd, avoid, torch.ones(15), table.coef,
+                            *table.tree)
+    with pytest.raises(ValueError, match='ray rows'):
+        dense_cast.cast_any_flat(tro, trd, avoid, torch.ones(15), table.coef)
 
 
 def test_dispatch_refuses_blocked_route():

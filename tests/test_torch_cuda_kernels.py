@@ -8,7 +8,13 @@ Marked `cuda`: each test skips where torch.cuda.is_available() is false
 The cast kernels (dense, closest and blocked) are built with
 --fmad=false, so on identical inputs they agree with the plain versions
 bit for bit; the tolerances stated in chip_smoke.py (index and occlusion
-on >= 99.99% of rays) hold with room.  The blocked kernels run on
+on >= 99.99% of rays) hold with room.  The dense scene-level casts
+(shade_kernel, any_kernel) walk each scene's box tree (fused_nodes) and
+equal their plain versions on random rays, a ragged count and the
+wavefront's own per-bounce rays on the five dense benchmark scenes and a
+random 2,500-face table; their walk counters (dense_cast_visits) cover
+the pairs blocked.leaf_pairs counts; the table-level intersect.cast_closest
+/ cast_any launch only the flat kernels.  The blocked kernels run on
 cornell_highpoly(nu=48, nv=24, accel='blocked') (2,560 faces, 5 blocks,
 a box tree of 80 leaves in 128 slots), at 64^2 camera rays and on a
 random ragged batch, and on a two-block table built for an exact key tie
@@ -87,30 +93,166 @@ def _rays(n, f, dev, seed=0):
             t(avoid, torch.int32), t(tmax))
 
 
+def _small_scene(dev):
+    '''50 small random triangles and a large floor face: a table of two
+    leaves (kBoxes false) whose tree order is not the index order.'''
+    rng = np.random.RandomState(9)
+    nf = 50
+    c = rng.uniform(-1.5, 1.5, (nf, 1, 3)) + [0.0, 2.0, 0.0]
+    tris = (c + rng.uniform(-0.4, 0.4, (nf, 3, 3))).astype(np.float32)
+    tris[0] = [[-2, 0, -2], [2, 0, -2], [2, 0, 2]]
+    verts = np.concatenate([tris.reshape(-1, 3),
+                            np.tile([[0.0, 1.0, 0.0]], (nf * 3, 1)),
+                            np.zeros((nf * 3, 2))], axis=1)
+    scene = make_scene(verts, device=dev)
+    assert scene.fused_nodes.shape == (4, 8)
+    assert not torch.equal(scene.fused_order.cpu(),
+                           torch.arange(56, dtype=torch.int32))
+    return scene
+
+
 SCENES = {'cornell': lambda d: cornell_box(device=d),
           'cornell_monkey': lambda d: cornell_monkey(device=d),
-          'random_2500': lambda d: _random_scene(2500, d)}
+          'cornell_textured': lambda d: cornell_box(textured_image=_texture(),
+                                                    device=d),
+          'envlight': lambda d: envlight_scene(device=d),
+          'matball': lambda d: matball(roughness_tex=_texture(), device=d),
+          'random_2500': lambda d: _random_scene(2500, d),
+          'small_56': _small_scene}
+
+
+def _tree(scene):
+    return scene.fused_coef, scene.fused_nodes, scene.fused_order
+
+
+def _hold_dense(scene, ro, rd, avoid, tmax):
+    '''The tree kernels and the flat ones against their plain versions,
+    bit for bit.'''
+    c, at, tree = scene.face_coef, scene.face_attr, _tree(scene)
+    hk, ak = dense_cast.cast_shade(ro, rd, avoid, c, at, *tree)
+    hp, ap = dense_cast.cast_shade_plain(ro, rd, avoid, c, at)
+    ok = dense_cast.cast_any(ro, rd, avoid, tmax, c, *tree)
+    op = dense_cast.cast_any_plain(ro, rd, avoid, tmax, c)
+    fk = dense_cast.cast_any_flat(ro, rd, avoid, tmax, c)
+    ck = dense_cast.cast_closest(ro, rd, avoid, c)
+    cp = dense_cast.cast_closest_plain(ro, rd, avoid, c)
+    torch.cuda.synchronize()
+    _assert_same_hit(hk, hp)
+    assert torch.equal(ak, ap)
+    assert torch.equal(ok, op) and torch.equal(fk, op)
+    _assert_same_hit(ck, cp)
+    _assert_same_hit(ck, hk)  # the shade kernel's hit, without attributes
 
 
 @pytest.mark.parametrize('name', sorted(SCENES))
 @pytest.mark.parametrize('n', [262144, 1001])
 def test_kernels_match_plain(dev, name, n):
     scene = SCENES[name](dev)
-    ro, rd, avoid, tmax = _rays(n, scene.face_coef.shape[0], dev)
-    hk, ak = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
-                                   scene.face_attr)
-    hp, ap = dense_cast.cast_shade_plain(ro, rd, avoid, scene.face_coef,
-                                         scene.face_attr)
-    ok = dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef)
-    op = dense_cast.cast_any_plain(ro, rd, avoid, tmax, scene.face_coef)
-    ck = dense_cast.cast_closest(ro, rd, avoid, scene.face_coef)
-    cp = dense_cast.cast_closest_plain(ro, rd, avoid, scene.face_coef)
+    _hold_dense(scene, *_rays(n, scene.face_coef.shape[0], dev))
+
+
+@pytest.mark.parametrize('name', sorted(set(SCENES)
+                                         - {'random_2500', 'small_56'}))
+def test_tree_kernels_match_plain_on_wavefront_rays(dev, name):
+    '''The casts the wavefront makes: every bounce's closest cast (avoid
+    the last hit, an original face id) and shadow cast of a 64x64 sample
+    at depth 5.'''
+    scene = SCENES[name](dev)
+    lanes = []
+    fused.fused_trace_primary_plain(scene, sobol_block(9, 32), 64, 64,
+                                    lanes=lanes)
+    for lane in lanes:
+        _hold_dense(scene, lane['ro'], lane['rd'], lane['avoid'],
+                    torch.full_like(lane['ro'].x, 5.0))
+        _hold_dense(scene, lane['ro_sh'], lane['rd_sh'], lane['hit'].index,
+                    lane['tmax'])
+
+
+def test_tree_kernels_cross_leaf_tie(dev):
+    '''The exact key tie across leaves goes to face 3, the lower id, as in
+    the plain version, though the walk enters face 65's leaf first; with
+    either copy avoided (an original id) the other is hit and occludes.'''
+    scene, (ro, rd) = _fused_tie_scene(dev)
+    n = ro.x.shape[0]
+    tmax = torch.full((n,), 10.0, device=dev)
+    for av in (-1, 3, 65):
+        avoid = torch.full((n,), av, dtype=torch.int32, device=dev)
+        _hold_dense(scene, ro, rd, avoid, tmax)
+    hit, _ = dense_cast.cast_shade(ro, rd, torch.full_like(avoid, -1),
+                                   scene.face_coef, scene.face_attr,
+                                   *_tree(scene))
+    assert hit.hit.all() and (hit.index == 3).all()
+    shade, _ = dense_cast.dense_cast_visits(
+        ro, rd, torch.full_like(avoid, -1), tmax, scene.face_coef,
+        scene.face_attr, *_tree(scene))
+    assert (shade[:, 1] >= 2).all()  # both copies' leaves were tested
+
+
+@pytest.mark.parametrize('name', ['cornell', 'cornell_monkey', 'envlight'])
+def test_dense_visits_and_pair_count(dev, name):
+    '''The walk counters: a parked shadow ray (tmax 0) leaves at the root,
+    the two-leaf cornell tests its leaves in order with no inner node,
+    and the closest cast tests at least the leaves whose box a ray enters
+    before its hit (blocked.leaf_pairs, the bound's count).'''
+    scene = SCENES[name](dev)
+    ro, rd, avoid, tmax = _rays(1001, scene.face_coef.shape[0], dev)
+    tmax[:16] = 0.0
+    c, at = scene.face_coef, scene.face_attr
+    before = dict(dense_cast.LAUNCHES)
+    shade, occ = dense_cast.dense_cast_visits(ro, rd, avoid, tmax, c, at,
+                                              *_tree(scene))
+    hit, _ = dense_cast.cast_shade(ro, rd, avoid, c, at, *_tree(scene))
+    assert dense_cast.LAUNCHES['shade'] - before['shade'] == 2
+    assert dense_cast.LAUNCHES['any'] - before['any'] == 1
+    if name == 'cornell':
+        assert (shade[:, 0] == 0).all() and (shade[:, 1] == 2).all()
+    else:
+        assert not occ[:16].any()
+        assert (shade[:, 0] <= scene.fused_nodes.shape[0] // 2).all()
+    pairs = blocked.leaf_pairs(ro, rd, scene.fused_nodes, int(scene.nfaces),
+                               torch.where(hit.hit, hit.t, float('inf')),
+                               True)
+    assert (pairs <= blocked.LEAF_FACES * shade[:, 1]).all()
+
+
+def test_tree_kernels_raise_without_their_tree(dev):
+    '''No fallback to the flat loop: a missing, misshapen, CPU or
+    misaligned tree table raises before any launch.'''
+    scene = cornell_monkey(device=dev)
+    ro, rd, avoid, tmax = _rays(64, scene.face_coef.shape[0], dev)
+    f = scene.face_coef.shape[0]
+    misaligned = torch.empty(f * 16 + 1, device=dev)[1:].view(f, 16)
+    misaligned.copy_(scene.fused_coef)
+    coef, nodes, order = _tree(scene)
+    before = dict(dense_cast.LAUNCHES)
+    for name, tree in (('tree_nodes', (coef, None, order)),
+                       ('tree_nodes', (coef, nodes[:4], order)),
+                       ('tree_order', (coef, nodes, order.cpu())),
+                       ('tree_coef', (misaligned, nodes, order))):
+        with pytest.raises(ValueError, match=name):
+            dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
+                                  scene.face_attr, *tree)
+        with pytest.raises(ValueError, match=name):
+            dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef, *tree)
+    assert dense_cast.LAUNCHES == before
+
+
+def test_table_level_casts_launch_flat_kernels(dev):
+    '''intersect.cast_closest / cast_any pack a bare table per call and
+    launch the flat kernels, never the tree ones.'''
+    from ptina_tpu_torch import intersect
+    scene = cornell_monkey(device=dev)
+    ro, rd, avoid, tmax = _rays(4099, scene.face_coef.shape[0], dev)
+    before = dict(dense_cast.LAUNCHES)
+    hit = intersect.cast_closest(ro, rd, scene.tri_w2b, avoid)
+    occ = intersect.cast_any(ro, rd, scene.tri_w2b, avoid, tmax)
     torch.cuda.synchronize()
-    _assert_same_hit(hk, hp)
-    assert torch.equal(ak, ap)
-    assert torch.equal(ok, op)
-    _assert_same_hit(ck, cp)
-    _assert_same_hit(ck, hk)  # the shade kernel's hit, without attributes
+    grew = {k: v - before[k] for k, v in dense_cast.LAUNCHES.items()}
+    assert grew == {'shade': 0, 'any': 0, 'closest': 1, 'any_flat': 1}
+    _assert_same_hit(hit, dense_cast.cast_closest_plain(ro, rd, avoid,
+                                                        scene.face_coef))
+    assert torch.equal(occ, dense_cast.cast_any_plain(ro, rd, avoid, tmax,
+                                                      scene.face_coef))
 
 
 def _assert_same_hit(a, b):
@@ -312,22 +454,27 @@ def test_render_launches_blocked_kernels(dev):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(film).all())
     grew = [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)]
-    assert grew == [{'shade': 0, 'any': 0, 'closest': 0},
+    assert grew == [{'shade': 0, 'any': 0, 'closest': 0, 'any_flat': 0},
                     {'blocked_shade': 10, 'blocked_any': 10}, {'path': 0}]
 
 
-def test_render_launches_kernels(dev):
-    '''The wavefront route launches both casts once per bounce.'''
-    scene = cornell_box(device=dev)
-    before = dict(dense_cast.LAUNCHES)
-    film = new_film(64, 64, device=dev)
-    for s in range(2):
-        render_sample(scene, film, s, fused=False)
-    torch.cuda.synchronize()
-    assert bool(torch.isfinite(film).all())
-    for k in ('shade', 'any'):
-        assert dense_cast.LAUNCHES[k] - before[k] == 5 * 2
-    assert dense_cast.LAUNCHES['closest'] == before['closest']
+@pytest.mark.parametrize('depth', [5, 8])
+def test_render_launches_kernels(dev, depth):
+    '''The wavefront route launches both tree casts once per bounce, and
+    no flat cast; a non-Disney model takes it under fused=True too.'''
+    for scene in (cornell_box(device=dev), cornell_monkey(device=dev)):
+        before = dict(dense_cast.LAUNCHES), fused.LAUNCHES['path']
+        film = new_film(64, 64, device=dev)
+        for s in range(2):
+            render_sample(scene, film, s, fused=False, max_depth=depth)
+        render_sample(scene, film, 2, fused=True, model='lambert',
+                      max_depth=depth)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(film).all())
+        grew = {k: v - before[0][k] for k, v in dense_cast.LAUNCHES.items()}
+        assert grew == {'shade': 3 * depth, 'any': 3 * depth, 'closest': 0,
+                        'any_flat': 0}
+        assert fused.LAUNCHES['path'] == before[1]
 
 
 def _texture():
@@ -414,6 +561,18 @@ def test_megakernel_matches_twin(dev, name):
     ro, rd = camera_rays(scene.cam_v2w, x, y)
     k = fused.fused_trace_uniforms(scene, ro, rd, u)
     p = fused.fused_trace_uniforms_plain(scene, ro, rd, u)
+    torch.cuda.synchronize()
+    _assert_close(k, p, relative)
+
+
+@pytest.mark.parametrize('name', sorted(MEGA))
+def test_megakernel_depth_8_matches_twin(dev, name):
+    '''max_depth 8: a 50-dimension Sobol point in the launch parameters.'''
+    make, relative = MEGA[name]
+    scene = make(dev)
+    pt = sobol_block(4, 2 + 6 * 8)
+    k = fused.fused_trace_primary(scene, pt, 64, 64)
+    p = fused.fused_trace_primary_plain(scene, pt, 64, 64)
     torch.cuda.synchronize()
     _assert_close(k, p, relative)
 

@@ -201,11 +201,35 @@ def test_render_sample_fused_equals_wavefront_on_cpu(name):
     assert (dict(fused.LAUNCHES), dict(dense_cast.LAUNCHES)) == before
 
 
-def test_megakernel_is_disney_only():
+def test_megakernel_is_disney_only(monkeypatch):
+    '''As in the reference (path.py:211-230), a model other than Disney
+    renders the wavefront whatever `fused` says: fused=True equals
+    fused=False bit for bit and launches no megakernel; the automatic
+    route does the same.'''
     ts = tscenes.cornell_box(device='cpu')
-    with pytest.raises(ValueError, match='Disney'):
-        render_sample(ts, new_film(8, 8, device='cpu'), 0, fused=True,
-                      model='lambert')
-    # the automatic route takes the wavefront for other models
-    film = render_sample(ts, new_film(8, 8, device='cpu'), 0, model='lambert')
-    assert bool(torch.isfinite(film).all())
+    taken = []
+    real = fused.fused_trace_primary
+    monkeypatch.setattr(fused, 'fused_trace_primary',
+                        lambda *a, **k: taken.append(1) or real(*a, **k))
+    films = [render_sample(ts, new_film(8, 8, device='cpu'), 0, fused=f,
+                           model='lambert') for f in (True, False, None)]
+    render_sample(ts, new_film(8, 8, device='cpu'), 0, fused=True)
+    assert taken == [1]  # the Disney call only
+    assert bool(torch.isfinite(films[0]).all())
+    assert torch.equal(films[0], films[1]) and torch.equal(films[2], films[1])
+    assert fused.LAUNCHES['path'] == 0
+
+
+@pytest.mark.parametrize('name', ['cornell', 'envlight'])
+def test_depth_8_twin_equals_wavefront(name):
+    '''max_depth 8 (a 50-dimension Sobol point) through fused=True, whose
+    CPU twin runs the megakernel's uniforms, equals the wavefront bit for
+    bit, as at depth 5.'''
+    _, ts = _pair(name)
+    res = 12 if name == 'envlight' else 16
+    f_fused = render_sample(ts, new_film(res, res, device='cpu'), 4,
+                            fused=True, max_depth=8)
+    f_wave = render_sample(ts, new_film(res, res, device='cpu'), 4,
+                           fused=False, max_depth=8)
+    assert torch.equal(f_fused, f_wave)
+    assert bool(torch.isfinite(f_fused).all()) and f_fused[0, :3].any()

@@ -10,6 +10,9 @@ packed key's, on a 2^-12 grid, and it accepts grazing |b0| < 1e-6 hits
 that brute rejects; intersect/plucker.py).  Tolerances: image means
 within 1%, and at least 98% of pixels within 1e-3 * (1 + |ref|).
 
+The same comparison at max_depth 8 (50 Sobol dimensions, above the 32
+the port first embedded) on cornell_box at 16x16.
+
 Golden: tests/test_parity.py's tolerances (mean 1.5%, patch 5%) at 64 spp.
 cornell_monkey's golden (96 spp) runs on the GPU in chip_smoke.py: the
 CPU plain cast is too slow for it here.
@@ -25,11 +28,13 @@ import jax.numpy as jnp
 from ptina_tpu import scenes as jscenes
 from ptina_tpu.film import new_film as jnew_film, film_to_image as jto_image
 from ptina_tpu.engine.path import (render as jrender,
+                                   render_sample as jrender_sample,
                                    power_heuristic as jpower_heuristic)
 from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.scene import scene_from_numpy, make_scene
 from ptina_tpu_torch.film import new_film, film_to_image
-from ptina_tpu_torch.engine.path import (render, power_heuristic, MAX_DEPTH,
+from ptina_tpu_torch.engine.path import (render, render_sample,
+                                         power_heuristic, MAX_DEPTH,
                                          PATH_DIMS)
 from ptina_tpu_torch.engine.fused import fused_trace_primary_plain
 from ptina_tpu_torch.sampling.sobol import sobol_block
@@ -57,6 +62,23 @@ def test_render_matches_reference(name):
     got = _port_image(scene_from_numpy(jax_scene_arrays(js), device='cpu'),
                       32, 2)
     assert dense_cast.LAUNCHES == before  # CPU: plain casts, no kernel
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert abs(got.mean() - ref.mean()) / ref.mean() < 0.01
+    close = (np.abs(got - ref) <= 1e-3 * (1.0 + np.abs(ref))).all(-1)
+    assert close.mean() >= 0.98, close.mean()
+
+
+def test_render_depth_8_matches_reference():
+    '''max_depth 8 through the port's wavefront against the JAX
+    wavefront's render_sample, two samples, at the tolerances above.'''
+    js = jscenes.cornell_box()
+    ts = scene_from_numpy(jax_scene_arrays(js), device='cpu')
+    jfilm, tfilm = jnew_film(16, 16), new_film(16, 16, device='cpu')
+    for s in (0, 1):
+        jfilm = jrender_sample(js, jfilm, s, fused=False, max_depth=8)
+        tfilm = render_sample(ts, tfilm, s, fused=False, max_depth=8)
+    ref = np.asarray(jto_image(jfilm))[..., :3]
+    got = film_to_image(tfilm)[..., :3].numpy()
     assert got.shape == ref.shape and np.isfinite(got).all()
     assert abs(got.mean() - ref.mean()) / ref.mean() < 0.01
     close = (np.abs(got - ref) <= 1e-3 * (1.0 + np.abs(ref))).all(-1)

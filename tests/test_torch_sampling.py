@@ -25,18 +25,24 @@ def _u32(rng, n):
 
 
 def test_embedded_grid_equals_reference_table():
-    '''The port's constant [32, 31] grid is the reference's Joe-Kuo grid.'''
-    ref = jsobol._vgrid_np(32)
-    got = tsobol.sobol_vgrid(32).numpy()
-    assert got.dtype == np.int32 and got.shape == (32, 31)
+    '''The port's constant [98, 31] grid is the reference's Joe-Kuo grid
+    (2 + 6 max_depth dimensions up to max_depth 16).'''
+    assert tsobol.MAX_DIMS == 98
+    ref = jsobol._vgrid_np(tsobol.MAX_DIMS)
+    got = tsobol.sobol_vgrid(tsobol.MAX_DIMS).numpy()
+    assert got.dtype == np.int32 and got.shape == (98, 31)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(tsobol.sobol_vgrid(8).numpy(),
                                   jsobol._vgrid_np(8))
 
 
 def test_grid_rejects_more_dims_than_embedded():
-    with pytest.raises(ValueError):
-        tsobol.sobol_vgrid(33)
+    '''Above the embedded grid the port raises, naming its cap (the
+    reference has none: ROADMAP queue 3).'''
+    for fn in (tsobol.sobol_vgrid, lambda d: tsobol.sobol_point(0, d),
+               lambda d: tsobol.sobol_block(0, d)):
+        with pytest.raises(ValueError, match='MAX_DIMS = 98'):
+            fn(tsobol.MAX_DIMS + 1)
 
 
 @pytest.mark.parametrize('arity', [1, 2, 3])
@@ -107,4 +113,22 @@ def test_sobol_point_equals_sobol(ndims):
         tsobol.sobol_point(37, ndims),
         np.asarray(jsobol.sobol_block(37, ndims)))
     with pytest.raises(ValueError):
-        tsobol.sobol_point(0, 33)
+        tsobol.sobol_point(0, tsobol.MAX_DIMS + 1)
+
+
+@pytest.mark.parametrize('ndims', [38, 50, 98])
+def test_deep_paths_bit_exact(ndims):
+    '''Depths 6, 8 and 16: the direction grid, the host point and the
+    per-pixel uniforms of a 16x16 block equal the JAX package's bit for
+    bit.'''
+    np.testing.assert_array_equal(tsobol.sobol_vgrid(ndims).numpy(),
+                                  jsobol._vgrid_np(ndims))
+    for sample_index in (0, 37):
+        np.testing.assert_array_equal(
+            tsobol.sobol_point(sample_index, ndims),
+            np.asarray(jsobol.sobol_block(sample_index, ndims)))
+    ii, jj = pixel_grid(16, 16, device='cpu')
+    jii, jjj = jpixel_grid(16, 16)
+    np.testing.assert_array_equal(
+        tsobol.sample_dims(5, ii, jj, ndims).numpy(),
+        np.asarray(jsobol.sample_dims(5, jii, jjj, ndims)))
