@@ -85,6 +85,28 @@ without the final line):
                 in the route's kernels, the device's busy share of the
                 unprofiled wall time, and the host-device
                 synchronisations in one sample.
+  8. engines  — the other engines and the worker, each with every count
+                at 0 just before it and read just after, at the reference
+                benchmark's settings: render_preview on matball (the 64x64
+                ramp) and cornell_highpoly at 512^2 x 1 spp (exactly one
+                shade / blocked_shade launch a sample; AOV passes finite
+                and equal to the same preview through the plain casts on
+                >= 99.99% of pixels); render_brute on cornell at 512^2 x
+                32 spp (5 shade launches a sample, no occlusion cast; mean
+                within 8% of the path render); MLT on cornell_monkey at
+                bench.py:154-170's cell (512^2 film, 2^17 chains, rounds of
+                4 steps, 1 warm-up and 4 timed: one path_kernel launch a
+                step, no cast; mutations/s; one step's replay through the
+                kernel against path_trace, bit for bit on >= 99.99% of
+                chains; the step's device time split into replay,
+                proposals and splat; busy share; 0 host-device
+                synchronisations a step) and Kelemen's brightness on
+                cornell at 64^2 within 5% of the path render; the worker
+                at 512^2 ('path', 'brute', 'mlt', render_preview; its path
+                image equal to render's bit for bit; save_state /
+                load_state resuming bit for bit); cornell_highpoly built
+                with accel='dense' through the brute route against the
+                blocked route at 64^2 x 1 spp.
 
 The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
@@ -94,6 +116,7 @@ closest hit, occlusion or path) and {"ok": true, "device": {...}}.
 Imports nothing of JAX or ptina_tpu.
 '''
 
+import contextlib
 import json
 import os
 import re
@@ -107,12 +130,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ptina_tpu_torch import intersect
+from ptina_tpu_torch import intersect, worker
 from ptina_tpu_torch.camera import camera_rays
-from ptina_tpu_torch.engine import fused
-from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
-from ptina_tpu_torch.film import new_film, film_to_image
-from ptina_tpu_torch.intersect import blocked, dense_cast
+from ptina_tpu_torch.engine import fused, mlt
+from ptina_tpu_torch.engine.brute import render_brute
+from ptina_tpu_torch.engine.mlt import mlt_init, mlt_step, render_mlt
+from ptina_tpu_torch.engine.path import (render, render_sample, pixel_grid,
+                                         path_trace)
+from ptina_tpu_torch.engine.preview import render_preview
+from ptina_tpu_torch.film import (new_film, film_to_image, film_splat,
+                                  PASS_ALBEDO, PASS_NORMAL)
+from ptina_tpu_torch.intersect import blocked, dense_cast, dispatch
 from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
@@ -120,7 +148,9 @@ from ptina_tpu_torch.scene import (make_scene, compute_node_bounds,
                                    morton_face_order)
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene,
-                                    matball)
+                                    matball, BENCH_CAMERA, _cornell_shell,
+                                    _cornell_boxes, _mesh_to_vertices,
+                                    _materials, _ceiling_light)
 from ptina_tpu_torch.utils.vec import V3
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -136,6 +166,13 @@ N_RAGGED = 100_003
 # (bench.py:232-234); its capacity check 256^2 x 2 spp (bench.py:216)
 HIGHPOLY_SPP = 8
 CAPACITY_RES, CAPACITY_SPP = 256, 2
+# the other engines at the reference benchmark's settings: brute 32 spp;
+# MLT's cell (bench.py:154-170): 2^17 chains, rounds of 4 steps, one
+# warm-up round and 4 timed; Kelemen's brightness check
+# (tests/test_mlt_quant.py) on cornell at 64^2
+BRUTE_SPP = 32
+MLT_CHAINS, MLT_STEPS, MLT_ROUNDS = 2 ** 17, 4, 4
+KELEMEN_CHAINS, KELEMEN_STEPS, KELEMEN_PATH_SPP = 2 ** 16, 128, 256
 # kernel vs plain tolerances (the packed-key t grid is 2^-12 relative;
 # FMA contraction in the kernel moves a verdict only on edge-grazing rays)
 MIN_AGREE = 0.9999
@@ -1362,6 +1399,417 @@ def phase_timings(card, scenes, tables, highpoly):
     return kt, pk, bounds
 
 
+# ---------------------------------------------------------------- phase 8
+
+@contextlib.contextmanager
+def _plain_casts():
+    '''Inside the block dispatch.cast_shaded calls the scene-level shade
+    wrappers' plain versions, so an engine's output through the CUDA
+    casts can be held against the same engine through the plain casts.'''
+    saved = dense_cast.cast_shade, blocked.blocked_cast_shade
+    dense_cast.cast_shade = dense_cast.cast_shade_plain
+    blocked.blocked_cast_shade = blocked.blocked_cast_shade_plain
+    try:
+        yield
+    finally:
+        dense_cast.cast_shade, blocked.blocked_cast_shade = saved
+
+
+def _launched(run):
+    '''run() with every count at 0 just before it and read just after:
+    (its result, the counts).'''
+    _zero_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, _counts()
+
+
+def _need(what, grew, want):
+    if grew != want:
+        raise AssertionError(f'{what}: launches {grew}, expected {want}')
+
+
+def _close_share(got, ref, rtol=1e-3):
+    '''Share of pixels (rows of the last axis) within rtol * (1 + |ref|):
+    tests/test_torch_render.py's contract-vs-brute allowance.'''
+    return ((got - ref).abs() <= rtol * (1.0 + ref.abs())).all(-1) \
+        .float().mean().item()
+
+
+def _split_ms(work, names, reps=3):
+    '''Device ms per call of work() from the profiler (CUDA activity):
+    (the kernels whose names contain one of `names`, all kernels, the
+    three costliest kernels' names and ms).'''
+    work()
+    torch.cuda.synchronize()
+    ka = _profile(lambda: [work() for _ in range(reps)],
+                  lambda k: sum(_dev_us(e) for e in k) > 0)
+    kern = sum(_dev_us(e) for e in ka if any(n in e.key for n in names))
+    total = sum(_dev_us(e) for e in ka)
+    top = sorted(((e.key[:40], _dev_us(e) / 1e3 / reps) for e in ka),
+                 key=lambda kv: -kv[1])[:3]
+    return kern / 1e3 / reps, total / 1e3 / reps, top
+
+
+def _syncs(work):
+    '''Host-device synchronisations work() makes (sync debug mode).'''
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            work()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    return [str(w.message) for w in caught
+            if 'called a synchronizing' in str(w.message)]
+
+
+def _preview(card, name, scene, key):
+    '''render_preview at 512^2, 1 spp: exactly one `key` launch, finite
+    AOV passes, the CUDA casts against the plain casts on >= MIN_AGREE of
+    pixels; its time.  Returns (launches, device ms, call ms).'''
+    film, grew = _launched(lambda: render_preview(
+        scene, new_film(RES, RES, device=DEV), 0, spp=1))
+    _need(f'preview {name}', grew, _expect(**{key: 1}))
+    with _plain_casts():
+        plain = render_preview(scene, new_film(RES, RES, device=DEV), 0, spp=1)
+    shares = []
+    for p in (PASS_ALBEDO, PASS_NORMAL):
+        img, ref = film_to_image(film, p), film_to_image(plain, p)
+        if not bool(torch.isfinite(img).all()) or bool(film[p, 3].ne(1).any()):
+            raise AssertionError(f'preview {name}: pass {p} not finite or '
+                                 f'not one sample a pixel')
+        shares.append(((img - ref).abs() <= ATTR_ATOL).all(-1).float()
+                      .mean().item())
+    if bool(film[0].any()) or min(shares) < MIN_AGREE:
+        raise AssertionError(f'preview {name}: combined pass touched or '
+                             f'CUDA vs plain casts {shares}')
+    f = new_film(RES, RES, device=DEV)
+    kern, dev, top = _split_ms(lambda: render_preview(scene, f, 0, spp=1),
+                               (key + '_kernel',))
+    call = _event_ms(lambda: render_preview(scene, f, 0, spp=1))
+    hit = (film_to_image(film, PASS_NORMAL)[..., :3].abs().sum(-1) > 0) \
+        .float().mean().item()
+    made = {k: v for k, v in grew.items() if v}
+    print(f'[engines] {card} | preview {name} {RES}x{RES} x 1 spp: launches '
+          f'{made}, hit {hit:.4f}; albedo / normal equal to the plain casts\' within '
+          f'{ATTR_ATOL} on {shares[0]:.6f} / {shares[1]:.6f} of pixels (>= '
+          f'{MIN_AGREE}); device {dev:.4f} ms a sample ({key}_kernel '
+          f'{kern:.4f} ms; costliest {top}), per call with launches '
+          f'{call:.4f} ms')
+    return grew[key], dev, call
+
+
+def _uniforms_bound(card, scene, ro, rd, x):
+    '''The explicit-uniform head's bound on MLT's replay (as _path_bound
+    for the primary head): the pairs these chains' paths need on the
+    scene's tree (path_trace's lanes on the same uniforms, _needed_pairs),
+    and the bytes of the face, tree and texture tables, the rays, the
+    uniform rows it reads (2 .. D-1) and the radiance rows it writes.'''
+    lanes = []
+    path_trace(scene, ro, rd, x, lanes=lanes)
+    nf, c = int(scene.nfaces), x.shape[1]
+    needed = _needed_pairs(scene, lanes, _occluders(scene, lanes),
+                           scene.fused_nodes, scene.fused_order.cpu().numpy())
+    pairs = sum(a + b for a, b in needed)
+    nbytes = (136 * nf + _nbytes(scene.fused_nodes, scene.fused_order)
+              + 64 * nf + _nbytes(scene.textures.data)
+              + 4 * c * (6 + x.shape[0] - 2) + 12 * c)
+    b = _bound(FLOPS_PER_PAIR * pairs, nbytes)
+    print(f'[bound] {card} | path_kernel uniforms head, MLT replay on '
+          f'cornell_monkey, {c} chains: needs {pairs} pairs (per bounce '
+          f'closest/shadow {needed}) -> {b[0]:.5f} ms by {b[1]}')
+    return b
+
+
+def _mlt(card, scene):
+    '''The reference benchmark's MLT cell (bench.py:154-170) on
+    cornell_monkey: 512^2 film, 2^17 chains, one warm-up round and
+    MLT_ROUNDS timed rounds of MLT_STEPS steps.'''
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    state = mlt_init(MLT_CHAINS, generator=gen, device=DEV)
+    film = new_film(RES, RES, device=DEV)
+    (state, film), grew = _launched(
+        lambda: render_mlt(scene, state, film, steps=MLT_STEPS))
+    _need('MLT warm-up round', grew, _expect(path=MLT_STEPS))
+    launches = grew['path']
+    rounds = []
+    _zero_counts()
+    for _ in range(MLT_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, film = render_mlt(scene, state, film, steps=MLT_STEPS)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+    _need('MLT timed rounds', _counts(), _expect(path=MLT_ROUNDS * MLT_STEPS))
+    img = film_to_image(film)[..., :3]
+    if not bool(torch.isfinite(img).all()) or int(state.step) \
+            != (MLT_ROUNDS + 1) * MLT_STEPS:
+        raise AssertionError('MLT: film not finite or steps lost')
+    mps = MLT_STEPS * MLT_CHAINS / statistics.median(rounds)
+    step_wall = statistics.median(rounds) / MLT_STEPS * 1e3
+    # one step's proposals replayed through the kernel and through
+    # path_trace (the wavefront on the CUDA casts), from the same state
+    x_new, _, _ = mlt._propose(state, mlt.LSP, mlt.SIGMA)
+    ro, rd = camera_rays(scene.cam_v2w, x_new[0] * 2.0 - 1.0,
+                         x_new[1] * 2.0 - 1.0)
+    k = _stack(fused.fused_trace_uniforms(scene, ro, rd, x_new))
+    p = _stack(path_trace(scene, ro, rd, x_new))
+    bit = (k == p).all(0).float().mean().item()
+    if bit < MIN_AGREE or not bool(torch.isfinite(k).all()):
+        raise AssertionError(f'MLT replay: kernel = path_trace bit for bit '
+                             f'on {bit} of chains')
+    # where a step's device time goes: the replay (one path_kernel launch)
+    # against the proposals (hash_uniform, normaldist) and the splat
+    rep = _device_ms(lambda: fused.fused_trace_uniforms(scene, ro, rd, x_new),
+                     reps=3)
+    rep_call = _event_ms(lambda: fused.fused_trace_uniforms(scene, ro, rd,
+                                                            x_new))
+    rep_plain = _profiled_ms(lambda: path_trace(scene, ro, rd, x_new))
+    prop = _device_ms(lambda: mlt._propose(state, mlt.LSP, mlt.SIGMA), reps=3)
+    xi = torch.floor(torch.cat([x_new[0], state.x[0]]) * RES).long()
+    yi = torch.floor(torch.cat([x_new[1], state.x[1]]) * RES).long()
+    w = torch.rand(4, 2 * MLT_CHAINS, generator=gen, device=DEV)
+    splat_film = new_film(RES, RES, device=DEV)
+    splat = _device_ms(lambda: film_splat(splat_film, 0, xi, yi, *w), reps=3)
+    step_dev = _device_ms(lambda: mlt_step(scene, state, film), reps=3)
+    syncs = _syncs(lambda: mlt_step(scene, state, film))
+    bound = _uniforms_bound(card, scene, ro, rd, x_new)
+    print(f'[engines] {card} | MLT cornell_monkey {RES}x{RES} film, '
+          f'{MLT_CHAINS} chains, {MLT_STEPS} steps a round: launches a '
+          f'round {grew["path"]} path_kernel and no cast; {mps:.1f} '
+          f'mutations/s (median of {MLT_ROUNDS} rounds: '
+          f'{", ".join(f"{r * 1e3:.3f}" for r in rounds)} ms; '
+          f'{MLT_ROUNDS * MLT_STEPS * MLT_CHAINS / sum(rounds):.1f} over '
+          f'all, as bench.py:167); kernel = path_trace bit for bit on '
+          f'{bit:.6f} of chains')
+    print(f'[engines] {card} | MLT step: device {step_dev:.4f} ms of '
+          f'{step_wall:.4f} ms wall (busy {step_dev / step_wall:.1%}); '
+          f'replay {rep:.4f} ms (path_kernel uniforms head, per call with '
+          f'launch {rep_call:.4f} ms; path_trace on the CUDA casts '
+          f'{rep_plain:.4f} ms), proposals (hash_uniform, normaldist) '
+          f'{prop:.4f} ms, splat of {2 * MLT_CHAINS} {splat:.4f} ms, the '
+          f'rest {step_dev - rep - prop - splat:.4f} ms; {len(syncs)} '
+          f'host-device synchronisations a step'
+          + (f'; first: {syncs[0]}' if syncs else ''))
+    if syncs:
+        raise AssertionError(f'MLT step synchronises: {syncs[0]}')
+    return dict(launches=launches, mps=mps, ms=rep, plain_ms=rep_plain,
+                call_ms=rep_call, bound=bound, step_ms=step_dev,
+                step_wall_ms=step_wall, splat_ms=splat, propose_ms=prop,
+                agree=bit)
+
+
+def _kelemen(card, scene):
+    '''Kelemen's estimator against the path render on cornell at 64^2
+    (tests/test_mlt_quant.py's check): brightness within 5%.'''
+    truth = film_to_image(render(scene, new_film(64, 64, device=DEV), 0,
+                                 spp=KELEMEN_PATH_SPP))[..., :3]
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    _, film = render_mlt(scene, mlt_init(KELEMEN_CHAINS, generator=gen,
+                                         device=DEV),
+                         new_film(64, 64, device=DEV), steps=KELEMEN_STEPS)
+    img = film_to_image(film)[..., :3]
+    err = abs(img.mean().item() - truth.mean().item()) / truth.mean().item()
+    print(f'[engines] MLT Kelemen cornell 64x64, {KELEMEN_CHAINS} chains x '
+          f'{KELEMEN_STEPS} steps: mean {img.mean().item():.5f} against the '
+          f'path render\'s {truth.mean().item():.5f} ({KELEMEN_PATH_SPP} '
+          f'spp): brightness error {err:.4f} (< 0.05)')
+    if not (bool(torch.isfinite(img).all()) and err < 0.05):
+        raise AssertionError(f'MLT Kelemen brightness error {err}')
+
+
+def _brute(card, scene):
+    '''render_brute on cornell at 512^2 x 32 spp: DEPTH shade launches a
+    sample and no occlusion cast; mean within 8% of the path render.'''
+    film, grew = _launched(lambda: render_brute(
+        scene, new_film(RES, RES, device=DEV), 0, spp=BRUTE_SPP))
+    _need('brute', grew, _expect(shade=DEPTH * BRUTE_SPP))
+    mean = _check_image('brute cornell', film, BRUTE_SPP)
+    path_mean = _check_image('path cornell', render(
+        scene, new_film(RES, RES, device=DEV), 0, spp=BRUTE_SPP), BRUTE_SPP)
+    err = abs(mean - path_mean) / max(mean, path_mean)
+    dt, sps = _sps(lambda f: render_brute(scene, f, 0, spp=BRUTE_SPP),
+                   BRUTE_SPP)
+    f = new_film(RES, RES, device=DEV)
+    kern, dev, _ = _split_ms(lambda: render_brute(scene, f, 0, spp=1),
+                             ('shade_kernel',))
+    ms = dt / BRUTE_SPP * 1e3
+    print(f'[engines] {card} | brute cornell {RES}x{RES} x {BRUTE_SPP} spp: '
+          f'launches {grew["shade"]} shade ({grew["shade"] / BRUTE_SPP:g} a '
+          f'sample), 0 any; mean {mean:.5f} against the path render\'s '
+          f'{path_mean:.5f} (rel {err:.4f} < 0.08); median {dt:.4f} s of 3 '
+          f'-> {sps:.3f} samples/s ({ms:.3f} ms/sample); device {dev:.4f} '
+          f'ms a sample (profiler; shade_kernel {kern:.4f} ms), busy '
+          f'{dev / ms:.1%}')
+    if err >= 0.08:
+        raise AssertionError(f'brute mean {mean} vs path {path_mean}')
+    return grew['shade'], ms
+
+
+def _worker_scene():
+    '''scenes.cornell_box built through the worker's calls.'''
+    shell, mtl = _cornell_shell()
+    tall, short = _cornell_boxes()
+    worker.set_size(RES, RES)
+    worker.load_model(_mesh_to_vertices(np.concatenate([shell, tall, short])),
+                      np.asarray(mtl + [0] * 24, np.int32))
+    worker.load_materials(_materials())
+    worker.clear_lights()
+    light = _ceiling_light()
+    world = np.eye(4)
+    world[:3, :3], world[:3, 3] = light['axes'], light['pos']
+    worker.add_light(world, light['color'], light['size'], 'AREA')
+    worker.set_world_light((0.05, 0.05, 0.05, 1.0), -1)
+    worker.set_camera(BENCH_CAMERA)
+    worker.build_tree()
+
+
+def _worker_resume(engine, ckpt):
+    '''Two renders, save_state, a third; a new worker loads the file and
+    renders the third: images (and MLT chains) equal bit for bit.'''
+    worker.init(engine=engine)
+    _worker_scene()
+    worker.render()
+    worker.render()
+    worker.save_state(ckpt)
+    worker.render()
+    want, chains = worker.get_image(), worker._S.mlt_state
+    worker.init()
+    _worker_scene()
+    if not worker.load_state(ckpt):
+        raise AssertionError('worker: checkpoint not found')
+    worker.render()
+    same = np.array_equal(worker.get_image(), want)
+    if chains is not None:
+        got = worker._S.mlt_state
+        same = same and all(torch.equal(a, b) for a, b in (
+            (got.x, chains.x), (got.l.x, chains.l.x), (got.l.y, chains.l.y),
+            (got.l.z, chains.l.z), (got.b_sum, chains.b_sum),
+            (got.b_cnt, chains.b_cnt), (got.step, chains.step)))
+    os.remove(ckpt)
+    return same
+
+
+def _worker(card, cornell):
+    '''The flat worker API at 512^2 on the card: 'path', 'brute', 'mlt'
+    and render_preview, each with its launches; the path image against
+    engine.path.render's of scenes.cornell_box; checkpoint resumes.'''
+    worker.init()
+    _worker_scene()
+    runs = {}
+    for engine, n, want in (('path', 4, dict(path=4)),
+                            ('brute', 2, dict(shade=2 * DEPTH)),
+                            ('mlt', 2, dict(path=2))):
+        worker.set_engine(engine)
+        worker.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grew = _launched(lambda: [worker.render() for _ in range(n)])
+        runs[engine] = (time.perf_counter() - t0) / n * 1e3
+        _need(f'worker {engine}', grew, _expect(**want))
+        img = worker.get_image()
+        if img.shape != (RES, RES, 4) or not np.isfinite(img).all():
+            raise AssertionError(f'worker {engine}: image')
+        if engine == 'path':
+            ref = film_to_image(render(cornell, new_film(RES, RES, device=DEV),
+                                       0, spp=n)).cpu().numpy()
+            if not np.array_equal(img, ref):
+                raise AssertionError('worker path image != render\'s')
+    t0 = time.perf_counter()
+    _, grew = _launched(worker.render_preview)
+    runs['preview'] = (time.perf_counter() - t0) * 1e3
+    _need('worker preview', grew, _expect(shade=1))
+    if not np.isfinite(worker.get_image(PASS_ALBEDO)).all():
+        raise AssertionError('worker preview: albedo pass')
+    ckpt = os.path.join(ROOT, 'build', 'chip_smoke_worker.ckpt')
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    resumed = {e: _worker_resume(e, ckpt) for e in ('path', 'mlt')}
+    # ids without a material row (the shell with no materials loaded)
+    # take the defaults in the megakernel as in its twin
+    worker.init()
+    worker.set_size(RES, RES)
+    shell, mtl = _cornell_shell()
+    worker.load_model(_mesh_to_vertices(shell), np.asarray(mtl, np.int32))
+    worker.build_tree()
+    pt = sobol_block(0, DIMS)
+    err = _hold('worker shell', 'no materials',
+                _stack(fused.fused_trace_primary(worker._S.scene, pt, RES,
+                                                 RES)),
+                _stack(fused.fused_trace_primary_plain(worker._S.scene, pt,
+                                                       RES, RES)), False)
+    print(f'[engines] {card} | worker {RES}x{RES}, ms a call (first calls, '
+          f'scene build excluded): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in runs.items())
+          + f'; path image = engine.path.render\'s of cornell_box bit for '
+          f'bit; save_state / load_state resumes bit for bit: {resumed}')
+    if not all(resumed.values()):
+        raise AssertionError(f'worker resume: {resumed}')
+    return err
+
+
+def _dense_brute(card, highpoly):
+    '''cornell_highpoly built with accel='dense': above MAX_DENSE_FACES it
+    casts with the plain brute route (no kernel), held against the
+    blocked route at 64^2 x 1 spp: the blocked casts' t lies on the 2^-12
+    key grid and brute's is exact, so on a mesh of facets this small a
+    few paths branch apart (98.7% of pixels agreed on the 8,214-face
+    tessellation on the CPU); >= 95% of pixels and the means within 1%.'''
+    t0 = time.perf_counter()
+    scene = cornell_highpoly(device=DEV, accel='dense')
+    built = time.perf_counter() - t0
+    if dispatch.route(scene.tri_w2b.shape[0], 'dense') != 'brute':
+        raise AssertionError('highpoly dense: not the brute route')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film, grew = _launched(lambda: render(scene, new_film(64, 64, device=DEV),
+                                          0, spp=1))
+    dt = time.perf_counter() - t0
+    _need('highpoly dense (brute)', grew, _expect())
+    ref, grew_b = _launched(lambda: render(
+        highpoly, new_film(64, 64, device=DEV), 0, spp=1))
+    _need('highpoly blocked', grew_b, _expect(blocked_shade=DEPTH,
+                                              blocked_any=DEPTH))
+    img, want = film_to_image(film)[..., :3], film_to_image(ref)[..., :3]
+    share = _close_share(img, want)
+    mean_err = abs(img.mean().item() - want.mean().item()) / want.mean().item()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    render(scene, new_film(64, 64, device=DEV), 0, spp=1)
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f'[engines] {card} | cornell_highpoly accel=\'dense\' '
+          f'({int(scene.nfaces)} faces, built in {built:.2f} s): brute route '
+          f'64x64 x 1 spp in {dt:.3f} s (first) / {again:.3f} s, no kernel '
+          f'launch, peak {peak:.1f} MiB; against the blocked route {share:.4f} '
+          f'of pixels within 1e-3 (1 + |ref|) (>= 0.95), means rel '
+          f'{mean_err:.2e} (< 0.01)')
+    if not bool(torch.isfinite(img).all()) or share < 0.95 or mean_err >= 0.01:
+        raise AssertionError('highpoly dense brute vs blocked')
+
+
+def phase_engines(card, scenes, highpoly):
+    '''The other engines and the worker (module docstring, phase 8).
+    Returns the numbers the kernels line carries.'''
+    t0 = time.perf_counter()
+    out = {}
+    out['preview_matball'] = _preview(card, 'matball', scenes['matball'],
+                                      'shade')
+    out['preview_highpoly'] = _preview(card, 'cornell_highpoly', highpoly,
+                                       'blocked_shade')
+    out['brute'] = _brute(card, scenes['cornell'])
+    out['mlt'] = _mlt(card, scenes['cornell_monkey'])
+    _kelemen(card, scenes['cornell'])
+    out['worker_err'] = _worker(card, scenes['cornell'])
+    _dense_brute(card, highpoly)
+    print(f'[engines] phase took {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main():
     card = phase_device()
     ptxas = phase_build()
@@ -1381,6 +1829,7 @@ def main():
     phase_capacity()
     phase_golden(scenes)
     kt, pk, bounds = phase_timings(card, scenes, tables, highpoly)
+    eng = phase_engines(card, scenes, highpoly)
 
     # launches per sample of each kernel's route: the dense tree casts on
     # the wavefront (fused=False) scenes, the megakernel on the five, the
@@ -1392,6 +1841,18 @@ def main():
         'path': counts['megakernel']['path'] / (SPP * len(SCENES)),
         'blocked_shade': counts['blocked']['blocked_shade'] / HIGHPOLY_SPP,
         'blocked_any': counts['blocked']['blocked_any'] / HIGHPOLY_SPP}
+
+    # the other engines' launches: preview (one closest cast a sample),
+    # brute (one a bounce), none of the occlusion casts
+    pm, ph, br = eng['preview_matball'], eng['preview_highpoly'], eng['brute']
+    engine_extra = {
+        'shade': dict(launches_preview=pm[0], preview_ms=pm[1],
+                      launches_brute=br[0],
+                      launches_brute_per_sample=br[0] / BRUTE_SPP,
+                      brute_ms_per_sample=br[1]),
+        'any': dict(launches_preview=0, launches_brute=0),
+        'blocked_shade': dict(launches_preview=ph[0], preview_ms=ph[1]),
+        'blocked_any': dict(launches_preview=0)}
 
     def entry(k, source, launches, ms, plain_ms, call_ms, bound, **extra):
         return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
@@ -1414,8 +1875,10 @@ def main():
         bound_ms_by_scene={t: bounds[t][k][0] for t in dense},
         bound_ms_all_faces_by_scene={t: bounds[t]['all_faces'][k]
                                      for t in dense},
-        visits_by_scene={t: bounds[t]['visits'][k] for t in dense})
+        visits_by_scene={t: bounds[t]['visits'][k] for t in dense},
+        **engine_extra[k])
         for k in ('shade', 'any')]
+    m = eng['mlt']
     kernels.append(entry(
         'path', PATH_SOURCE, counts['megakernel']['path'], *pk['cornell'],
         bounds['path']['cornell'],
@@ -1423,7 +1886,14 @@ def main():
         plain_ms_by_scene={k: v[1] for k, v in pk.items()},
         bound_ms_by_scene={k: v[0] for k, v in bounds['path'].items()},
         bound_ms_all_faces_by_scene=bounds['path_all_faces'],
-        visits_per_cast_by_scene=bounds['path_visits']))
+        visits_per_cast_by_scene=bounds['path_visits'],
+        launches_mlt=m['launches'], launches_mlt_step=m['launches'] / MLT_STEPS,
+        uniforms_ms=m['ms'], uniforms_plain_ms=m['plain_ms'],
+        uniforms_call_ms=m['call_ms'], uniforms_bound_ms=m['bound'][0],
+        uniforms_bound_by=m['bound'][1], uniforms_chains=MLT_CHAINS,
+        mlt_mutations_per_s=m['mps'], mlt_step_ms=m['step_ms'],
+        mlt_step_wall_ms=m['step_wall_ms'],
+        max_abs_err_worker=eng['worker_err']))
     kernels += [cast_entry(
         k, KERNEL_SOURCE, counts['table'][k], 'cornell',
         ms_monkey=kt['cornell_monkey'][k][0],
@@ -1431,7 +1901,7 @@ def main():
         bound_ms_monkey=bounds['cornell_monkey'][k][0])
         for k in ('closest', 'any_flat')]
     kernels += [cast_entry(k, BLOCKED_SOURCE, counts['blocked'][k],
-                           'cornell_highpoly')
+                           'cornell_highpoly', **engine_extra[k])
                 for k in ('blocked_shade', 'blocked_any')]
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -25,9 +25,16 @@ Disney shading, lights and textures, in both routes:
     (intersect/dense_cast.py, csrc/dense_cast.cu: closest hit +
     attributes, and occlusion, both walking the scene's box tree) or, on
     big scenes, the two blocked casts (intersect/blocked.py,
-    csrc/blocked_cast.cu);
-and the table-level intersect.cast_closest / cast_any (the flat
-closest_kernel and any_flat_kernel of csrc/dense_cast.cu).
+    csrc/blocked_cast.cu), or, for accel='dense' above 8192 faces, the
+    plain brute casts (intersect/brute.py);
+the table-level intersect.cast_closest / cast_any (the flat
+closest_kernel and any_flat_kernel of csrc/dense_cast.cu); the other
+engines (engine/brute.py, engine/preview.py: albedo / normal AOVs,
+engine/mlt.py: Metropolis light transport on the megakernel's
+explicit-uniform head), tone mapping (tone.py), and the flat worker API
+(worker.py, selecting the engines) with its config (config.py),
+checkpoints (checkpoint.py), parameters (utils/params.py) and logging and
+profiling (utils/trace.py).
 '''
 
 __version__ = '0.1.0'

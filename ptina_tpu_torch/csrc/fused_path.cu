@@ -170,12 +170,13 @@ __device__ __forceinline__ float4 sample_texture(const PtinaPathParams& p,
   return r;
 }
 
-// mtllib.fetch_material: the material row (mtlid -1 = defaults), texture
-// modulation of its bound parameters, then disney_derive
+// mtllib.fetch_material: the material row (mtlid -1, or an id without a
+// row = defaults), texture modulation of its bound parameters, then
+// disney_derive
 __device__ __forceinline__ Material fetch_material(const PtinaPathParams& p,
                                                    int mtlid, float s,
                                                    float t) {
-  const int row = mtlid < 0 ? p.mat_rows - 1 : mtlid;
+  const int row = mtlid < 0 || mtlid >= p.mat_rows ? p.mat_rows - 1 : mtlid;
   const float* fac = p.mat_fac + 48 * row;  // [12, 4]
   float v[12];
 #pragma unroll

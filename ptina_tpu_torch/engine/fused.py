@@ -285,8 +285,10 @@ def fused_trace_uniforms_plain(scene, ro, rd, uniforms):
 
 def fused_trace_uniforms(scene, ro, rd, uniforms):
     '''Trace [N] rays through the whole path on an explicit random stream.
-    ro, rd: V3 of [N] float32 rows; uniforms [2 + 6 depth, N] float32 as
-    path_trace consumes them (rows 0-1 are not read).  Returns radiance
+    ro, rd: V3 of contiguous [N] float32 rows; uniforms a contiguous
+    [2 + 6 depth, N] float32 block as path_trace consumes them (rows 0-1
+    are not read; MLT's chain state, engine/mlt.py).  On the card a
+    misshapen, strided or misplaced operand raises.  Returns radiance
     V3.'''
     dev = _check_device(scene)
     if dev.type == 'cpu':
@@ -294,13 +296,15 @@ def fused_trace_uniforms(scene, ro, rd, uniforms):
     n = ro.x.shape[0]
     rows = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
     if any(r.device != dev or r.dim() != 1 or r.shape[0] != n
-           for r in rows):
-        raise ValueError('rays must be [N] rows on the scene\'s device')
+           or not r.is_contiguous() for r in rows):
+        raise ValueError('rays must be contiguous [N] rows on the scene\'s '
+                         'device')
     dims = uniforms.shape[0]
     if uniforms.device != dev or uniforms.dim() != 2 \
-            or uniforms.shape[1] != n or dims < 2 or (dims - 2) % 6:
-        raise ValueError('uniforms must be [2 + 6 depth, N] on the scene\'s '
-                         'device')
+            or uniforms.shape[1] != n or dims < 2 or (dims - 2) % 6 \
+            or not uniforms.is_contiguous():
+        raise ValueError('uniforms must be a contiguous [2 + 6 depth, N] '
+                         'block on the scene\'s device')
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     p = _params(scene, n, (dims - 2) // 6, out)
     p.primary = 0

@@ -24,7 +24,9 @@ def fetch_material(scene, mtlid, tex_s, tex_t):
     (basecolor V3, scalars [N]).'''
     mats = scene.materials
     m1 = mats.fac.shape[0]  # M + 1 (last row = defaults for mtlid -1)
-    row = torch.where(mtlid < 0, m1 - 1, mtlid).long()
+    # an id without a material row takes the defaults too, as the
+    # reference's select chain (and its clamped texture gather) gives it
+    row = torch.where((mtlid < 0) | (mtlid >= m1), m1 - 1, mtlid).long()
     base_rgb = mats.fac[:, 0, 0:3][row]  # [N, 3]
     scal_tab = mats.fac[:, :, 0][row]    # [N, 12]
     base = V3(base_rgb[:, 0], base_rgb[:, 1], base_rgb[:, 2])

@@ -1,8 +1,10 @@
 '''
-Integer hashes for pixel decorrelation.
+Integer hashes for pixel decorrelation, and the counter-hashed uniforms
+of the MLT proposal streams (hash_uniform).
 
 Reference: ptina_tpu/sampling/__init__.py (wanghash family; reference
-ptina/sampling/__init__.py:8-31).
+ptina/sampling/__init__.py:8-31).  uniform_grid (jax.random) is not
+ported: its callers draw with torch.rand and an explicit generator.
 
 torch has no usable uint32 arithmetic (no wrapping multiply, and `>>` on
 int32 is arithmetic), so the hashes compute in int64 and mask every
@@ -13,7 +15,8 @@ shift.  Inputs and outputs are int64 tensors holding u32 values.
 
 import torch
 
-__all__ = ['wanghash', 'wanghash2', 'wanghash3', 'u32_to_unit']
+__all__ = ['wanghash', 'wanghash2', 'wanghash3', 'hash_uniform',
+           'u32_to_unit']
 
 _M32 = 0xFFFFFFFF
 
@@ -39,6 +42,18 @@ def wanghash2(i, j):
 
 def wanghash3(i, j, k):
     return wanghash((wanghash2(i, j) + _u32(k)) & _M32)
+
+
+def hash_uniform(*ints):
+    '''Integers -> float32 uniforms in [0, 1]: a wang-hash chain over the
+    arguments (broadcast together), as the reference's: h = wanghash(a0),
+    then h = wanghash(h + a_k) for each further argument, each value taken
+    mod 2^32 (the reference's cast to uint32, so a signed int32 product
+    that wrapped gives the same bits as its exact int64 value here).'''
+    h = wanghash(ints[0])
+    for x in ints[1:]:
+        h = wanghash((h + _u32(x)) & _M32)
+    return u32_to_unit(h)
 
 
 def u32_to_unit(h):

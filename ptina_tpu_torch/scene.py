@@ -24,8 +24,8 @@ block tables are a TPU layout and are not carried.  The port's own
 node_bounds is the box tree its blocked kernels walk: an implicit
 complete binary tree over leaves of LEAF_FACES consecutive faces
 (compute_node_bounds); the reference has no such table.  accel='dense' above
-MAX_DENSE_FACES (the reference's XLA brute route) is not ported and
-raises NotImplementedError.
+MAX_DENSE_FACES takes the reference's brute route (intersect/dispatch.py):
+build order, no Morton order, no blocks to pad to.
 
 Dense-route scenes carry a second tree of the port's own (dense_tree), the
 one every dense-route cast kernel walks: the path megakernel's two casts
@@ -34,8 +34,8 @@ one every dense-route cast kernel walks: the path megakernel's two casts
 faces re-ordered for it (fused_face_order), fused_coef their face_coef
 rows in that order, and fused_nodes compute_node_bounds over that order.
 The scene's own tables and face ids stay in build order: the kernels key
-and gather by the original id.  Blocked-route scenes carry these three
-with zero rows.
+and gather by the original id.  Blocked- and brute-route scenes carry
+these three with zero rows.
 '''
 
 from __future__ import annotations
@@ -422,7 +422,7 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
     nodes = compute_node_bounds(pos, int(nfaces))
     if route(pos.shape[0], accel) == 'dense':
         fused_coef, fused_nodes, order = dense_tree(pos, nfaces, coef)
-    else:  # no dense cast takes the blocked route
+    else:  # no dense cast takes the blocked or brute route
         fused_coef = coef[:0]
         fused_nodes = torch.zeros((0, 8), dtype=torch.float32)
         order = torch.zeros(0, dtype=torch.int32)
@@ -463,9 +463,9 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
     all-zero faces, which never hit.  Scenes of the blocked route (more
     than MAX_DENSE_FACES padded faces, or accel='blocked') are first
     Morton-ordered and padded to whole BLOCK_FACES blocks, as the
-    reference's morton=None rule does (scene.py:422-432).  Raises
-    NotImplementedError for accel='dense' above MAX_DENSE_FACES, and
-    ValueError above MAX_BLOCKS blocks.'''
+    reference's morton=None rule does (scene.py:422-432); accel='dense'
+    above MAX_DENSE_FACES keeps build order for the brute route.  Raises
+    ValueError above MAX_BLOCKS blocks on the blocked route.'''
     from ptina_tpu_torch.io.matrix import ortho, lookat
     vertices = np.asarray(vertices, np.float32)
     if not (vertices.ndim == 2 and vertices.shape[1] == 8

@@ -320,7 +320,8 @@ def test_wrappers_validate_operands():
 def test_dispatch_refuses_blocked_route():
     '''Scenes route by the reference's rule: accel='blocked' and big
     'auto' scenes to the blocked casts, small 'auto' and 'dense' scenes
-    to the dense ones; 'dense' above MAX_DENSE_FACES is refused.'''
+    to the dense ones; 'dense' above MAX_DENSE_FACES to brute, as the
+    reference's XLA route.'''
     scene = scene_from_numpy(jax_scene_arrays(jcornell_box()), device='cpu')
     assert dispatch._route(scene) == 'dense'
     scene.accel = 'dense'
@@ -345,5 +346,4 @@ def test_dispatch_refuses_blocked_route():
                           face_coef=torch.zeros(MAX_DENSE_FACES + 1, 16))
     assert dispatch._route(big) == 'blocked'
     big.accel = 'dense'
-    with pytest.raises(NotImplementedError, match='brute'):
-        dispatch._route(big)
+    assert dispatch._route(big) == 'brute'

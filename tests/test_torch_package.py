@@ -15,6 +15,7 @@ import sys
 import pytest
 import torch
 
+from ptina_tpu_torch.engine.mlt import mlt_init
 from ptina_tpu_torch.film import new_film
 from ptina_tpu_torch.sampling import sobol
 from ptina_tpu_torch.scenes import cornell_box
@@ -55,6 +56,9 @@ def test_imports_without_jax_nvcc_or_gpu():
         'import sys\n'
         'import ptina_tpu_torch.engine.path, ptina_tpu_torch.scenes\n'
         'import ptina_tpu_torch.intersect.dispatch\n'
+        'import ptina_tpu_torch.worker, ptina_tpu_torch.engine\n'
+        'import ptina_tpu_torch.checkpoint, ptina_tpu_torch.tone\n'
+        'import ptina_tpu_torch.utils.trace, ptina_tpu_torch.io.readobj\n'
         'from ptina_tpu_torch.intersect import blocked, dense_cast\n'
         'from ptina_tpu_torch.engine import fused\n'
         'for m in (dense_cast, fused, blocked):\n'
@@ -77,7 +81,9 @@ CARD_DEFAULT = [
     ('scenes', 'matball'), ('scene', 'make_scene'),
     ('scene', 'scene_from_numpy'), ('scene', 'make_materials'),
     ('scene', 'make_textures'), ('scene', 'make_lights'),
-    ('film', 'new_film'), ('engine.path', 'pixel_grid')]
+    ('film', 'new_film'), ('engine.path', 'pixel_grid'),
+    ('engine.mlt', 'mlt_init'), ('worker', 'init'),
+    ('checkpoint', 'mlt_state_from_numpy')]
 
 
 @pytest.mark.parametrize('module,name', CARD_DEFAULT,
@@ -103,3 +109,5 @@ def test_card_default_has_no_cpu_fallback():
         new_film(2, 2)
     with pytest.raises((RuntimeError, AssertionError)):
         cornell_box()
+    with pytest.raises((RuntimeError, AssertionError)):
+        mlt_init(4)

@@ -18,6 +18,7 @@ from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.scene import (scene_from_numpy, make_scene,
                                    morton_face_order, compute_block_bounds,
                                    MAX_DENSE_FACES, BLOCK_FACES, MAX_BLOCKS)
+from ptina_tpu_torch.intersect.dispatch import route
 
 torch.set_num_threads(2)
 
@@ -140,9 +141,9 @@ def test_padding_faces_are_zero():
 def test_dense_limit_and_blocked_raise():
     '''Above MAX_DENSE_FACES, and under accel='blocked', scenes build for
     the blocked route: Morton-ordered, padded to whole BLOCK_FACES blocks,
-    with block_bounds.  accel='dense' above MAX_DENSE_FACES (the
-    reference's XLA brute route) still raises, and so do scenes beyond
-    the blocked cast's MAX_BLOCKS.'''
+    with block_bounds.  accel='dense' above MAX_DENSE_FACES takes the
+    reference's brute route: build order, padded to pad_faces_to only, no
+    dense tree.  Scenes beyond the blocked cast's MAX_BLOCKS raise.'''
     rng = np.random.RandomState(2)
     nf = MAX_DENSE_FACES + 1
     verts = np.zeros((3 * nf, 8), np.float32)
@@ -158,13 +159,10 @@ def test_dense_limit_and_blocked_raise():
     small = make_scene(verts[:30], accel='blocked', device='cpu')
     assert small.tri_w2b.shape[0] == BLOCK_FACES and int(small.nfaces) == 10
     assert (small.block_bounds[0, :3] <= small.block_bounds[0, 3:6]).all()
-    with pytest.raises(NotImplementedError, match='dense'):
-        make_scene(verts, accel='dense', device='cpu')
-    arrays = jax_scene_arrays(jscenes.cornell_box())
-    arrays['tri_w2b'] = np.zeros((MAX_DENSE_FACES + 8, 3, 4), np.float32)
-    arrays['accel'] = 'dense'
-    with pytest.raises(NotImplementedError, match='dense'):
-        scene_from_numpy(arrays, device='cpu')
+    dense = make_scene(verts, accel='dense', device='cpu')
+    assert dense.tri_w2b.shape[0] == nf + 7 and dense.fused_coef.shape[0] == 0
+    np.testing.assert_array_equal(dense.tri_pos[:nf].numpy(), tri)
+    assert route(dense.tri_w2b.shape[0], 'dense') == 'brute'
     huge = np.broadcast_to(np.zeros(8, np.float32),
                            (3 * (BLOCK_FACES * MAX_BLOCKS + 1), 8))
     with pytest.raises(ValueError, match='blocks'):
