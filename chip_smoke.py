@@ -107,12 +107,33 @@ without the final line):
                 load_state resuming bit for bit); cornell_highpoly built
                 with accel='dense' through the brute route against the
                 blocked route at 64^2 x 1 spp.
+  9. grad     — the gradients (ptina_tpu_torch.diff) at 512^2, depth 5,
+                1 spp a call, each call with every count at 0 just before
+                it and read just after: material_grad on cornell_monkey
+                through the pair (engine/fused.fused_trace_diff: 1 path, 5
+                shade and 5 any launches) and the wavefront (5 + 5):
+                losses within 2e-3, gradients allclose(rtol=0.05, atol=1e-4
+                max|g|), the white wall's basecolor red against a central
+                difference (5%); texture_grad on matball (the 64x64
+                roughness ramp) through the pair: finite, channels 1-3
+                zero, a share of channel 0 strictly between 0 and 1
+                nonzero, the highest-gradient texel against a central
+                difference; the light color (cornell) and world factor
+                (envlight) in the image mean against central differences;
+                material_grad on cornell_highpoly (the blocked wavefront, 5
+                blocked_shade + 5 blocked_any) finite and one factor
+                against its difference; 4 inverse_render_steps on cornell
+                toward a darker wall (the loss falls; fac - lr g bit for
+                bit).  Per gradient call: wall ms of its forward and
+                backward, device ms (profiler; path_kernel by CUDA
+                events), busy share and peak memory.
 
 The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
 plain version, its time, its plain version's time, its bound and what
 sets it, and library_ms, null: no single PyTorch call computes a ray-face
-closest hit, occlusion or path) and {"ok": true, "device": {...}}.
+closest hit, occlusion or path; launches_grad_* its launches in one
+gradient call of phase 9) and {"ok": true, "device": {...}}.
 Imports nothing of JAX or ptina_tpu.
 '''
 
@@ -132,6 +153,9 @@ import torch
 
 from ptina_tpu_torch import intersect, worker
 from ptina_tpu_torch.camera import camera_rays
+from ptina_tpu_torch.diff import (_loss_and_grad, inverse_render_step,
+                                  material_grad, render_image_diff,
+                                  texture_grad)
 from ptina_tpu_torch.engine import fused, mlt
 from ptina_tpu_torch.engine.brute import render_brute
 from ptina_tpu_torch.engine.mlt import mlt_init, mlt_step, render_mlt
@@ -145,7 +169,7 @@ from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
 from ptina_tpu_torch.scene import (make_scene, compute_node_bounds,
-                                   morton_face_order)
+                                   morton_face_order, with_tensor)
 from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene,
                                     matball, BENCH_CAMERA, _cornell_shell,
@@ -173,6 +197,9 @@ CAPACITY_RES, CAPACITY_SPP = 256, 2
 BRUTE_SPP = 32
 MLT_CHAINS, MLT_STEPS, MLT_ROUNDS = 2 ** 17, 4, 4
 KELEMEN_CHAINS, KELEMEN_STEPS, KELEMEN_PATH_SPP = 2 ** 16, 128, 256
+# the gradients: inverse_render_step's steps and rate (the reference's
+# default rate is 0.1; at 1.0 four steps move the loss visibly)
+INVERSE_STEPS, INVERSE_LR = 4, 1.0
 # kernel vs plain tolerances (the packed-key t grid is 2^-12 relative;
 # FMA contraction in the kernel moves a verdict only on edge-grazing rays)
 MIN_AGREE = 0.9999
@@ -1810,6 +1837,267 @@ def phase_engines(card, scenes, highpoly):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+def _get(obj, path):
+    for name in path:
+        obj = getattr(obj, name)
+    return obj
+
+
+def _grad_loss(img, target):
+    '''image_loss's MSE against target, or, target None, the image mean
+    (tests/test_grad.py's loss).'''
+    return img.mean() if target is None else torch.mean((img - target) ** 2)
+
+
+def _grad_once(scene, where, target, trace):
+    '''One gradient call in the scene tensor at `where` through
+    render_image_diff (trace: its _trace_diff), split at the loss:
+    (loss, gradient, forward wall ms, backward wall ms).'''
+    leaf = _get(scene, where).detach().requires_grad_(True)
+    sc = with_tensor(scene, where, leaf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = _grad_loss(render_image_diff(sc, RES, RES, _trace_diff=trace),
+                      target)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g, = torch.autograd.grad(loss, leaf)
+    torch.cuda.synchronize()
+    return loss.detach(), g, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def _grad_fd(scene, where, idx, eps, target):
+    '''Central difference of the loss in one entry of the tensor at
+    `where`: two renders through render_image_diff's automatic route
+    (the megakernel's forward on an eligible scene), losses in float64.'''
+    vals = []
+    with torch.no_grad():
+        for e in (eps, -eps):
+            t = _get(scene, where).clone()
+            t[idx] += e
+            img = render_image_diff(with_tensor(scene, where, t), RES, RES).double()
+            vals.append(_grad_loss(img, None if target is None
+                                   else target.double()).item())
+    return (vals[0] - vals[1]) / (2 * eps)
+
+
+def _diff_rays(scene):
+    '''Sample 0's camera rays and uniforms as diff._sample_diff_fused
+    makes them.'''
+    ii, jj = pixel_grid(RES, RES, device=DEV)
+    u = sample_dims(0, ii, jj, DIMS)
+    x = (ii.to(torch.float32) + u[0]) / RES * 2.0 - 1.0
+    y = (jj.to(torch.float32) + u[1]) / RES * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    return ro, rd, u
+
+
+def _grad_timing(card, what, scene, where, target, trace, launches):
+    '''A gradient call's times: the wall ms of its forward (the loss with
+    autograd's graph) and backward (torch.autograd.grad), median of 3
+    calls; device ms of each from the profiler (CUDA activity; the trace
+    is taken again while empty), path_kernel's by CUDA events (the trace
+    can lose its launch); the busy share; the peak memory the call adds
+    to what was allocated before it.  Prints one [grad] line.'''
+    runs = [_grad_once(scene, where, target, trace)[2:] for _ in range(3)]
+    fwd = statistics.median(r[0] for r in runs)
+    bwd = statistics.median(r[1] for r in runs)
+    leaf = _get(scene, where).detach().requires_grad_(True)
+    sc = with_tensor(scene, where, leaf)
+    held = {}
+
+    def forward():
+        held['loss'] = _grad_loss(render_image_diff(sc, RES, RES,
+                                                    _trace_diff=trace),
+                                  target)
+
+    def backward():
+        torch.autograd.grad(held['loss'], leaf, retain_graph=True)
+
+    def nonempty(ka):
+        return sum(_dev_us(e) for e in ka) > 0
+    dev = []
+    for work in (forward, backward):
+        ka = _profile(work, nonempty)
+        dev.append(sum(_dev_us(e) for e in ka if 'path_kernel' not in e.key)
+                   / 1e3)
+    # the backward's three costliest kernels: (name, launches, device ms)
+    top = sorted(((e.key[:48], e.count, _dev_us(e) / 1e3) for e in ka),
+                 key=lambda kv: -kv[2])[:3]
+    path_ms = 0.0
+    if launches.get('path'):
+        ro, rd, u = _diff_rays(scene)
+        path_ms = _device_ms(lambda: fused.fused_trace_uniforms(scene, ro, rd,
+                                                                u), reps=3)
+        dev[0] += path_ms
+    held.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _grad_once(scene, where, target, trace)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    busy = (dev[0] + dev[1]) / (fwd + bwd)
+    made = {k: v for k, v in launches.items() if v}
+    print(f'[grad] {card} | {what}: launches {made}; wall forward '
+          f'{fwd:.3f} + backward {bwd:.3f} = {fwd + bwd:.3f} ms a gradient '
+          f'call (median of 3); device forward {dev[0]:.4f} + backward '
+          f'{dev[1]:.4f} = {dev[0] + dev[1]:.4f} ms (profiler'
+          + (f'; path_kernel {path_ms:.4f} ms by CUDA events' if path_ms
+             else '') + f'), busy {busy:.1%}; peak memory +{peak:.3f} GiB '
+          f'over {base / 2 ** 30:.3f} GiB allocated; the backward\'s '
+          f'costliest kernels (launches, ms): '
+          + '; '.join(f'{k} ({n}, {ms:.3f})' for k, n, ms in top))
+    return dict(launches=made, fwd_ms=fwd, bwd_ms=bwd, dev_fwd_ms=dev[0],
+                dev_bwd_ms=dev[1], busy=busy, peak_gib=peak)
+
+
+def _hold_fd(what, g, fd, floor):
+    '''tests/test_grad.py's check: |g - fd| < 5% of max(|fd|, floor).'''
+    print(f'[grad] {what}: autograd {g:.6e}, central difference {fd:.6e} '
+          f'(rel {abs(g - fd) / max(abs(fd), floor):.4f} < 0.05)')
+    if not abs(g - fd) < 0.05 * max(abs(fd), floor):
+        raise AssertionError(f'{what}: autograd {g} vs difference {fd}')
+
+
+def _grad_monkey(card, scene):
+    '''material_grad on cornell_monkey through the pair (the automatic
+    route) and the wavefront (render_image_diff's _trace_diff=False, through
+    diff._loss_and_grad): launches, losses within
+    2e-3, gradients at tests/test_grad.py:161-165's tolerances; the white
+    wall's basecolor red against a central difference.'''
+    zero = torch.zeros(RES, RES, 3, device=DEV)
+    (lf, gf), pair = _launched(lambda: material_grad(scene, zero))
+    _need('grad monkey pair', pair, _expect(path=1, shade=DEPTH, any=DEPTH))
+    (lw, gw), wave = _launched(lambda: _loss_and_grad(
+        scene, zero, ('materials', 'fac'), trace_diff=False))
+    _need('grad monkey wavefront', wave, _expect(shade=DEPTH, any=DEPTH))
+    rel = abs(lf.item() - lw.item()) / max(lw.item(), 1e-6)
+    atol = 1e-4 * max(gw.abs().max().item(), 1e-6)
+    close = torch.isclose(gf, gw, rtol=0.05, atol=atol)
+    print(f'[grad] {card} | cornell_monkey material_grad {RES}x{RES} x 1 '
+          f'spp: loss pair {lf.item():.6e}, wavefront {lw.item():.6e} (rel '
+          f'{rel:.2e} < 2e-3); gradients allclose(rtol=0.05, atol='
+          f'{atol:.2e}) on {close.float().mean().item():.6f} of '
+          f'{gf.numel()} entries, max |g| {gw.abs().max().item():.4e}')
+    if rel >= 2e-3 or not bool(torch.isfinite(gf).all()) \
+            or not bool(close.all()):
+        raise AssertionError('grad monkey: pair vs wavefront')
+    _hold_fd(f'{card} | cornell_monkey fac[0, 0, 0] (eps 1e-2)',
+             gf[0, 0, 0].item(),
+             _grad_fd(scene, ('materials', 'fac'), (0, 0, 0), 1e-2, zero),
+             1e-3)
+    return pair, wave
+
+
+def _grad_matball(card, scene):
+    '''texture_grad on matball (the 64x64 roughness ramp) through the
+    pair: finite, channels 1-3 zero, a share of channel 0 strictly
+    between 0 and 1 nonzero, the highest-gradient texel against a
+    central difference.'''
+    zero = torch.zeros(RES, RES, 3, device=DEV)
+    (loss, g), grew = _launched(lambda: texture_grad(scene, zero))
+    _need('grad matball', grew, _expect(path=1, shade=DEPTH, any=DEPTH))
+    ch0 = g[0, :, :, 0].abs()
+    share = (ch0 > 0).float().mean().item()
+    rest = g[..., 1:].abs().sum().item()
+    xi, yi = np.unravel_index(int(ch0.argmax()), tuple(ch0.shape))
+    print(f'[grad] {card} | matball texture_grad {RES}x{RES} x 1 spp: loss '
+          f'{loss.item():.6e}; channel 0 nonzero on {share:.4f} of '
+          f'{ch0.numel()} texels, channels 1-3 sum |g| {rest}; highest '
+          f'texel ({xi}, {yi})')
+    if not bool(torch.isfinite(g).all()) or rest != 0 \
+            or not 0 < share < 1:
+        raise AssertionError('grad matball: texture gradient')
+    _hold_fd(f'{card} | matball texel ({xi}, {yi}) channel 0 (eps 1e-2)',
+             g[0, xi, yi, 0].item(),
+             _grad_fd(scene, ('textures', 'data'), (0, xi, yi, 0), 1e-2,
+                      zero), 1e-4)
+    return grew
+
+
+def _grad_inverse(card, scene):
+    '''inverse_render_step, 4 steps on cornell toward a target rendered
+    with the white wall's basecolor at half: the loss falls from the first
+    step to the last; a step is fac - lr * g bit for bit.'''
+    fac = scene.materials.fac.clone()
+    fac[0, 0, :3] *= 0.5
+    with torch.no_grad():
+        target = render_image_diff(with_tensor(scene, ('materials', 'fac'), fac),
+                                   RES, RES)
+    _, g = material_grad(scene, target)
+    losses, times, sc = [], [], scene
+    for _ in range(INVERSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, loss = inverse_render_step(sc, target, lr=INVERSE_LR)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not losses and not torch.equal(
+                nxt.materials.fac, scene.materials.fac - INVERSE_LR * g):
+            raise AssertionError('inverse_render_step: fac - lr g differs')
+        losses.append(loss.item())
+        sc = nxt
+    print(f'[grad] {card} | cornell inverse_render_step x {INVERSE_STEPS} '
+          f'(lr {INVERSE_LR}) toward the wall at half its basecolor: losses '
+          f'{", ".join(f"{v:.6e}" for v in losses)}; wall '
+          f'{statistics.median(times):.3f} ms a step (median); first step = '
+          f'fac - lr g bit for bit; wall red '
+          f'{scene.materials.fac[0, 0, 0].item():.4f}'
+          f' -> {sc.materials.fac[0, 0, 0].item():.4f} (target '
+          f'{fac[0, 0, 0].item():.4f})')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'inverse_render_step: losses {losses}')
+
+
+def phase_grad(card, scenes, highpoly):
+    '''The gradients at 512^2, depth 5, 1 spp a call (module docstring,
+    phase 9).  Returns the launches of the pair, the wavefront and the
+    blocked route.'''
+    t0 = time.perf_counter()
+    zero = torch.zeros(RES, RES, 3, device=DEV)
+    fac = ('materials', 'fac')
+    monkey = scenes['cornell_monkey']
+    pair, wave = _grad_monkey(card, monkey)
+    _grad_timing(card, 'cornell_monkey material_grad, pair', monkey, fac,
+                 zero, None, pair)
+    _grad_timing(card, 'cornell_monkey material_grad, wavefront', monkey, fac,
+                 zero, False, wave)
+    matball_launches = _grad_matball(card, scenes['matball'])
+    _grad_timing(card, 'matball texture_grad, pair', scenes['matball'],
+                 ('textures', 'data'), zero, None, matball_launches)
+    # the light color (cornell) and world factor (envlight) in the image
+    # mean, as tests/test_grad.py differentiates them
+    for name, where, idx, eps, floor in (
+            ('cornell', ('lights', 'color'), (0, 0), 1e-1, 1e-5),
+            ('envlight', ('world_fac',), (0,), 1e-2, 1e-4)):
+        (_, g, _, _), grew = _launched(lambda: _grad_once(
+            scenes[name], where, None, None))
+        _need(f'grad {name}', grew, _expect(path=1, shade=DEPTH, any=DEPTH))
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f'grad {name}: not finite')
+        _hold_fd(f'{card} | {name} {".".join(where)}{list(idx)} (eps {eps})',
+                 g[idx].item(), _grad_fd(scenes[name], where, idx, eps, None),
+                 floor)
+        _grad_timing(card, f'{name} d mean / d {".".join(where)}, pair',
+                     scenes[name], where, None, None, grew)
+    (loss, g), blocked_launches = _launched(lambda: material_grad(highpoly,
+                                                                  zero))
+    _need('grad highpoly', blocked_launches,
+          _expect(blocked_shade=DEPTH, blocked_any=DEPTH))
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError('grad highpoly: not finite')
+    _hold_fd(f'{card} | cornell_highpoly fac[0, 0, 0] (eps 1e-2)',
+             g[0, 0, 0].item(), _grad_fd(highpoly, fac, (0, 0, 0), 1e-2,
+                                         zero), 1e-3)
+    _grad_timing(card, 'cornell_highpoly material_grad, blocked wavefront',
+                 highpoly, fac, zero, None, blocked_launches)
+    _grad_inverse(card, scenes['cornell'])
+    print(f'[grad] phase took {time.perf_counter() - t0:.1f} s')
+    return dict(pair=pair, wavefront=wave, blocked=blocked_launches)
+
+
 def main():
     card = phase_device()
     ptxas = phase_build()
@@ -1830,6 +2118,7 @@ def main():
     phase_golden(scenes)
     kt, pk, bounds = phase_timings(card, scenes, tables, highpoly)
     eng = phase_engines(card, scenes, highpoly)
+    grad = phase_grad(card, scenes, highpoly)
 
     # launches per sample of each kernel's route: the dense tree casts on
     # the wavefront (fused=False) scenes, the megakernel on the five, the
@@ -1853,6 +2142,13 @@ def main():
         'any': dict(launches_preview=0, launches_brute=0),
         'blocked_shade': dict(launches_preview=ph[0], preview_ms=ph[1]),
         'blocked_any': dict(launches_preview=0)}
+    # a gradient call (1 spp): the pair on cornell_monkey, the wavefront
+    # (_trace_diff=False) on it, the blocked route on cornell_highpoly
+    for k in ('shade', 'any'):
+        engine_extra[k].update(launches_grad_pair=grad['pair'][k],
+                               launches_grad_wavefront=grad['wavefront'][k])
+    for k in ('blocked_shade', 'blocked_any'):
+        engine_extra[k]['launches_grad_blocked'] = grad['blocked'][k]
 
     def entry(k, source, launches, ms, plain_ms, call_ms, bound, **extra):
         return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
@@ -1893,7 +2189,9 @@ def main():
         uniforms_bound_by=m['bound'][1], uniforms_chains=MLT_CHAINS,
         mlt_mutations_per_s=m['mps'], mlt_step_ms=m['step_ms'],
         mlt_step_wall_ms=m['step_wall_ms'],
-        max_abs_err_worker=eng['worker_err']))
+        max_abs_err_worker=eng['worker_err'],
+        launches_grad_pair=grad['pair']['path'],
+        launches_grad_wavefront=grad['wavefront']['path']))
     kernels += [cast_entry(
         k, KERNEL_SOURCE, counts['table'][k], 'cornell',
         ms_monkey=kt['cornell_monkey'][k][0],

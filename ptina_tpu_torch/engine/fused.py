@@ -13,6 +13,16 @@ sm_90a), each with its plain twin beside it:
     uniform block (rows 0-1, the lens dims, are not read); the entry of
     MLT replay and of the gradient pair's forward; twin: path_trace.
 
+fused_trace_diff is the differentiable entry (reference: fused.py's
+jax.custom_vjp fused_trace_diff): FusedTraceDiff, a
+torch.autograd.Function whose forward is fused_trace_uniforms (the
+kernel's explicit-uniform head on the card, its twin on the CPU) and
+whose backward recomputes path_trace on the same uniforms under autograd
+and pulls the cotangent back to the rays and to every floating scene
+tensor that requires grad; the uniforms get none.  The kernel has no
+backward of its own: the gradients are the wavefront's, whose casts are
+detached (engine/path.py).
+
 Each picks by the scene tensors' device and nothing else: CPU -> the
 plain twin; CUDA -> the kernel, or an exception (an ineligible scene, a
 failed build or a failed launch all raise; nothing falls back to the
@@ -20,8 +30,7 @@ wavefront).  On identical inputs the twin equals the wavefront render bit
 for bit; on the card its casts are the wavefront's CUDA casts.
 
 The reference's explicit-ray head with in-kernel RNG (fused_trace) has
-no caller outside its tests and is not ported; fused_trace_diff comes
-with the gradients.
+no caller outside its tests and is not ported.
 
 Eligibility (fused_eligible) is decided from the scene alone, before any
 build.  The port's own limits, from its kernel's resources: the scene is
@@ -53,6 +62,7 @@ casts' tree-walk counters, and counts that launch too.
 '''
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -62,14 +72,15 @@ from ptina_tpu_torch.intersect.blocked import tree_leaves
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.plucker import key_mask_for
 from ptina_tpu_torch.sampling.sobol import pixel_rotation, MAX_DIMS
+from ptina_tpu_torch.scene import with_tensor
 from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
                                               raise_on, stream_ptr)
 from ptina_tpu_torch.utils.vec import V3
 
 __all__ = ['fused_eligible', 'fused_trace_primary', 'fused_trace_uniforms',
-           'fused_trace_primary_plain', 'fused_trace_uniforms_plain',
-           'fused_trace_visits', 'build_library', 'LAUNCHES',
-           'MAX_FUSED_FACES']
+           'fused_trace_diff', 'FusedTraceDiff', 'fused_trace_primary_plain',
+           'fused_trace_uniforms_plain', 'fused_trace_visits',
+           'build_library', 'LAUNCHES', 'MAX_FUSED_FACES']
 
 MAX_FUSED_FACES = MAX_DENSE_FACES
 
@@ -313,3 +324,81 @@ def fused_trace_uniforms(scene, ro, rd, uniforms):
         p.ray_d[k] = _addr(rows[3 + k], torch.float32)
     p.uniforms = _addr(uniforms, torch.float32)
     return _launch(p, out)
+
+
+def _scene_tensors(scene):
+    '''(path, tensor) of every tensor of the scene, its materials, textures
+    and lights; a path is a tuple of field names.'''
+    out = []
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        if dataclasses.is_dataclass(v):
+            out += [((f.name,) + p, t) for p, t in _scene_tensors(v)]
+        elif isinstance(v, torch.Tensor):
+            out.append(((f.name,), v))
+    return out
+
+
+def _grad_leaves(scene):
+    '''_scene_tensors' floating tensors that require grad.'''
+    return [(p, t) for p, t in _scene_tensors(scene)
+            if t.is_floating_point() and t.requires_grad]
+
+
+def _versions(scene):
+    return [t._version for _, t in _scene_tensors(scene)]
+
+
+class FusedTraceDiff(torch.autograd.Function):
+    '''The megakernel-forward / wavefront-backward pair (module docstring).
+    apply(scene, paths, uniforms, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z,
+    *leaves) -> radiance rows (x, y, z); leaves are the scene's tensors at
+    `paths` (_grad_leaves), the inputs the gradient reaches besides the
+    rays.  The scene's other tensors are read through ctx.scene: their
+    version counters are kept, and the backward raises if one was modified
+    in place since the forward, as autograd does for saved tensors.'''
+
+    @staticmethod
+    def forward(ctx, scene, paths, uniforms, *rows_and_leaves):
+        rows = rows_and_leaves[:6]
+        rad = fused_trace_uniforms(scene, V3(*rows[:3]), V3(*rows[3:]),
+                                   uniforms)
+        ctx.scene, ctx.paths = scene, paths
+        ctx.versions = _versions(scene)
+        ctx.save_for_backward(uniforms, *rows_and_leaves)
+        return rad.x, rad.y, rad.z
+
+    @staticmethod
+    def backward(ctx, gx, gy, gz):
+        from ptina_tpu_torch.engine.path import path_trace
+        uniforms, *ins = ctx.saved_tensors
+        if _versions(ctx.scene) != ctx.versions:
+            raise RuntimeError('fused_trace_diff: a scene tensor needed for '
+                               'gradient computation has been modified by '
+                               'an inplace operation since the forward')
+        need = ctx.needs_input_grad[3:]
+        ins = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
+        with torch.enable_grad():
+            scene = ctx.scene
+            for path, t in zip(ctx.paths, ins[6:]):
+                scene = with_tensor(scene, path, t)
+            rad = path_trace(scene, V3(*ins[:3]), V3(*ins[3:6]), uniforms)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad((rad.x, rad.y, rad.z), wrt,
+                                           (gx, gy, gz), allow_unused=True))
+        return (None, None, None) + tuple(next(got) if n else None
+                                          for n in need)
+
+
+def fused_trace_diff(scene, ro, rd, uniforms):
+    '''fused_trace_uniforms under autograd: the same radiance V3, and a
+    backward that recomputes path_trace on these uniforms (FusedTraceDiff)
+    into ro, rd and every floating scene tensor that requires grad.  The
+    rays and the block are made contiguous rows; a CUDA scene that is not
+    fused_eligible raises, as fused_trace_uniforms does.'''
+    leaves = _grad_leaves(scene)
+    rows = [r.contiguous() for r in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+    x, y, z = FusedTraceDiff.apply(scene, tuple(p for p, _ in leaves),
+                                   uniforms.contiguous(), *rows,
+                                   *(t for _, t in leaves))
+    return V3(x, y, z)

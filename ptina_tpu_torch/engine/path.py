@@ -25,8 +25,14 @@ the CPU its plain twin, which equals the wavefront bit for bit);
 fused=False the wavefront.  The wavefront's casts route by the scene
 (intersect/dispatch.py: the dense casts walk the scene's box tree, the
 blocked two-level casts take big or accel='blocked' scenes).  max_depth
-is at most 16 on both routes (sampling/sobol.MAX_DIMS).  No gradients
-flow in this slice.
+is at most 16 on both routes (sampling/sobol.MAX_DIMS).
+
+Gradients: the wavefront is plain torch, so autograd differentiates a
+render in every scene tensor that requires grad (diff.py).  The casts are
+detached, as the reference's stop_gradient detaches them: gradients flow
+through shading at fixed hit points (hitpos = ro + rd * t stays
+differentiable in ro and rd), never through the discrete intersection, so
+the CPU's plain casts and the card's kernels give one estimator.
 '''
 
 import torch
@@ -59,8 +65,10 @@ def power_heuristic(a, b):
 
 def _cast_and_shade(scene, ro, rd, avoid):
     '''Closest cast with fused attributes -> hit point, two-sided normal,
-    material.'''
-    hit, normal, tex_s, tex_t, mtlid = cast_shaded(scene, ro, rd, avoid)
+    material.  The hit, normal and texcoord are detached (module
+    docstring).'''
+    with torch.no_grad():
+        hit, normal, tex_s, tex_t, mtlid = cast_shaded(scene, ro, rd, avoid)
     hitpos = ro + rd * hit.t
     sign = -vdot(rd, normal)
     normal = vwhere(sign < 0, -normal, normal)
@@ -101,7 +109,8 @@ def _bounce(scene, carry, u, model='disney', lanes=None):
     ro_sh = vwhere(hit.hit, hitpos, 0.0)
     rd_sh = vwhere(hit.hit, li['dir'], V3.full_like(hitpos, (0, 0, 1)))
     tmax_sh = torch.where(hit.hit, li['dis'], 0.0)
-    occ = cast_shadow(scene, ro_sh, rd_sh, hit.index, tmax_sh)
+    with torch.no_grad():
+        occ = cast_shadow(scene, ro_sh, rd_sh, hit.index, tmax_sh)
     brdf_clr = bsdf_eval(model, material, normal, sign, -rd, li['dir'],
                          zero=scene.materials.zero)
     brdf_pdf = vavg3(brdf_clr)

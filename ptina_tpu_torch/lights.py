@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import EPS, INF, safe_sqrt
+from ptina_tpu_torch.utils.mathutils import EPS, INF, clamp_min, safe_sqrt
 from ptina_tpu_torch.utils.vec import (V3, vdot, vnormalize, vcross, vwhere,
                                        vspherical, vdir2tex)
 from ptina_tpu_torch.scene import LIGHT_POINT, LIGHT_AREA
@@ -47,8 +47,8 @@ def ray_rect(ro, rd, pos, dirx, diry):
     facing = nod > EPS
     t = vdot(nrm, pos - ro) / torch.where(facing, nod, 1.0)
     p = ro + rd * t - pos
-    u = vdot(p, dirx) / torch.clamp_min(vdot(dirx, dirx), 1e-20)
-    v = vdot(p, diry) / torch.clamp_min(vdot(diry, diry), 1e-20)
+    u = vdot(p, dirx) / clamp_min(vdot(dirx, dirx), 1e-20)
+    v = vdot(p, diry) / clamp_min(vdot(diry, diry), 1e-20)
     hit = facing & (torch.abs(u) < 1.0) & (torch.abs(v) < 1.0)
     return hit, torch.where(hit, t, INF)
 
@@ -90,7 +90,7 @@ def lights_hit(lights, ro, rd):
         valid = live & (t > 0.0) & (t < dis)
 
         dis = torch.where(valid, t, dis)
-        pdf = torch.where(valid, t * t / torch.clamp_min(area, 1e-12), pdf)
+        pdf = torch.where(valid, t * t / clamp_min(area, 1e-12), pdf)
         color = vwhere(valid, _slot_v3(lights.color, l), color)
         found = found | valid
 
@@ -147,11 +147,11 @@ def lights_sample(lights, hitpos, su, sv, sz):
         is_area_sel = torch.where(sel, is_area, is_area_sel)
 
     toli = litpos - hitpos
-    dis = torch.clamp_min(safe_sqrt(vdot(toli, toli)), 1e-12)
+    dis = clamp_min(safe_sqrt(vdot(toli, toli)), 1e-12)
     direction = toli * (1.0 / dis)
-    pdf = dis * dis / torch.clamp_min(area, 1e-12)
+    pdf = dis * dis / clamp_min(area, 1e-12)
     out_color = color * (1.0 / pdf)
-    cosine = torch.clamp_min(vdot(nrm, direction), 0.0)
+    cosine = clamp_min(vdot(nrm, direction), 0.0)
     out_color = vwhere(is_area_sel, out_color * cosine, out_color)
 
     empty = lights.count == 0

@@ -9,6 +9,8 @@ tree, remapped after each test, while the discrete pdf is tracked.
 
 import torch
 
+from ptina_tpu_torch.utils.mathutils import clamp_min
+
 __all__ = ['choice_split']
 
 
@@ -17,8 +19,8 @@ def choice_split(w, rate, tiny=1e-12):
     [N] branch probability.  Returns (taken mask, remapped w, pdf factor:
     rate where taken else 1 - rate).'''
     taken = w < rate
-    safe_r = torch.clamp_min(rate, tiny)
-    safe_1r = torch.clamp_min(1.0 - rate, tiny)
+    safe_r = clamp_min(rate, tiny)
+    safe_1r = clamp_min(1.0 - rate, tiny)
     w2 = torch.where(taken, w / safe_r, (w - rate) / safe_1r)
     pdf = torch.where(taken, rate, 1.0 - rate)
     return taken, w2, pdf

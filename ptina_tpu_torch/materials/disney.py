@@ -13,7 +13,8 @@ the result.
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import EPS, PI, lerp, safe_sqrt
+from ptina_tpu_torch.utils.mathutils import (EPS, PI, clamp_min, lerp,
+                                            safe_sqrt)
 from ptina_tpu_torch.utils.vec import (
     V3, vdot, vdot_or_zero, vnormalize, vlerp, vwhere, vavg3, vreflect,
     vrefract, vtanframe, vspherical,
@@ -29,7 +30,7 @@ __all__ = ['disney_derive', 'disney_eval', 'disney_sample']
 
 def _sd(num, den, eps=1e-8):
     '''Divide with a sign-preserving clamped denominator (den: tensor).'''
-    mag = torch.clamp_min(torch.abs(den), eps)
+    mag = clamp_min(torch.abs(den), eps)
     return num / torch.where(den < 0, -mag, mag)
 
 
@@ -38,7 +39,7 @@ def disney_derive(p):
     ctor.  p: dict with basecolor (V3) and the 11 scalar params [N].'''
     basecolor = p['basecolor']
     lum = 0.3 * basecolor.x + 0.6 * basecolor.y + 0.1 * basecolor.z
-    inv_lum = 1.0 / torch.clamp_min(lum, EPS)
+    inv_lum = 1.0 / clamp_min(lum, EPS)
     tint = vwhere(lum > EPS, basecolor * inv_lum, 1.0)
     one = V3.full_like(tint, (1.0, 1.0, 1.0))
     mix = vlerp(p['specularTint'], one, tint)
@@ -48,7 +49,7 @@ def disney_derive(p):
     out['tintcolor'] = tint
     out['speccolor'] = spec
     out['sheencolor'] = sheen
-    out['alpha'] = torch.clamp_min(p['roughness'] * p['roughness'], 0.001)
+    out['alpha'] = clamp_min(p['roughness'] * p['roughness'], 0.001)
     out['ccalpha'] = lerp(p['clearcoatGloss'], 0.1, 0.001)
     return out
 

@@ -9,7 +9,7 @@ reference's Disney) is not ported.
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import PI, clamp, safe_sqrt
+from ptina_tpu_torch.utils.mathutils import PI, clamp, clamp_min, safe_sqrt
 from ptina_tpu_torch.utils.vec import vspherical
 
 __all__ = ['schlick_fresnel', 'dielectric_fresnel', 'gtr1', 'gtr2',
@@ -37,8 +37,8 @@ def dielectric_fresnel(etai, etao, cosi):
     cost = safe_sqrt(1.0 - sint * sint)
     a1, a2 = etai * cosi, etao * cost
     b1, b2 = etao * cosi, etai * cost
-    para = (a1 - a2) / torch.clamp_min(a1 + a2, 1e-12)
-    perp = (b1 - b2) / torch.clamp_min(b1 + b2, 1e-12)
+    para = (a1 - a2) / clamp_min(a1 + a2, 1e-12)
+    perp = (b1 - b2) / clamp_min(b1 + b2, 1e-12)
     return torch.where(no_tir, 0.5 * (para * para + perp * perp), 1.0)
 
 
@@ -46,7 +46,7 @@ def gtr1(cosh, alpha):
     '''Berry NDF used for clearcoat (alpha < 1).'''
     a2 = alpha * alpha
     t = 1.0 + (a2 - 1.0) * cosh * cosh
-    denom = PI * torch.log(torch.clamp_min(a2, 1e-12)) * t
+    denom = PI * torch.log(clamp_min(a2, 1e-12)) * t
     return (a2 - 1.0) / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
 
 
@@ -54,27 +54,27 @@ def gtr2(cosh, alpha):
     '''GGX NDF.'''
     a2 = alpha * alpha
     t = 1.0 + (a2 - 1.0) * cosh * cosh
-    return a2 / (PI * torch.clamp_min(t * t, 1e-12))
+    return a2 / (PI * clamp_min(t * t, 1e-12))
 
 
 def smith_ggx(cosi, alpha):
     '''Smith masking term 1 / (cos + sqrt(a^2 + cos^2 - a^2 cos^2)).'''
     a = alpha * alpha
     b = cosi * cosi
-    return 1.0 / torch.clamp_min(cosi + safe_sqrt(a + b - a * b), 1e-12)
+    return 1.0 / clamp_min(cosi + safe_sqrt(a + b - a * b), 1e-12)
 
 
 def sample_gtr1(u, v, alpha):
     '''Importance-sample the GTR1 lobe, local frame (standard CDF
     inversion; the reference fixes ptina's misplaced parentheses).'''
-    a2 = torch.clamp_min(alpha * alpha, 1e-12)
-    h = safe_sqrt(torch.clamp_min(1.0 - a2 ** (1.0 - u), 0.0)
-                  / torch.clamp_min(1.0 - a2, 1e-12))
+    a2 = clamp_min(alpha * alpha, 1e-12)
+    h = safe_sqrt(clamp_min(1.0 - a2 ** (1.0 - u), 0.0)
+                  / clamp_min(1.0 - a2, 1e-12))
     return vspherical(h, v)
 
 
 def sample_gtr2(u, v, alpha):
     '''Importance-sample the GGX lobe, local frame.'''
     h = safe_sqrt((1.0 - u)
-                  / torch.clamp_min(1.0 - u * (1.0 - alpha * alpha), 1e-12))
+                  / clamp_min(1.0 - u * (1.0 - alpha * alpha), 1e-12))
     return vspherical(h, v)

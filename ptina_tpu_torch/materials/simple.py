@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import INF
+from ptina_tpu_torch.utils.mathutils import INF, clamp, clamp_min
 from ptina_tpu_torch.utils.vec import (
     V3, vdot, vnormalize, vreflect, vspherical, vtanframe, vwhere,
 )
@@ -57,8 +57,8 @@ def mirror_sample(p, normal, sign, indir, su, sv, sw):
 def _shineness(p):
     # Phong exponent from roughness: 2/r^2 - 2
     r = p.get('roughness')
-    r = torch.clamp(r, 1e-3, 1.0)
-    return torch.clamp_min(2.0 / (r * r) - 2.0, 0.0)
+    r = clamp(r, 1e-3, 1.0)
+    return clamp_min(2.0 / (r * r) - 2.0, 0.0)
 
 
 def phong_eval(p, normal, sign, indir, outdir):

@@ -53,7 +53,7 @@ from ptina_tpu_torch.intersect.plucker import pack_faces
 
 __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'make_materials', 'make_lights', 'make_textures',
-           'scene_from_numpy', 'precompute_tri_functionals',
+           'scene_from_numpy', 'with_tensor', 'precompute_tri_functionals',
            'pack_corner_attrs', 'morton_face_order', 'compute_block_bounds',
            'compute_node_bounds', 'fused_face_order', 'dense_tree',
            'DEFAULT_MATERIAL',
@@ -556,3 +556,13 @@ def scene_from_numpy(arrays, device='cuda'):
                    int(np.asarray(a['nfaces'])), mats, tex, lights,
                    a['world_fac'], world_tex, a['cam_v2w'], a['cam_w2v'],
                    a.get('accel', 'auto'), world_tex, device)
+
+
+def with_tensor(obj, path, t):
+    '''obj (a Scene, or its Materials, TextureAtlas or Lights) with the
+    tensor at `path`, a tuple of field names such as ('materials', 'fac'),
+    replaced by t through dataclasses.replace; obj itself is unchanged.'''
+    if len(path) == 1:
+        return dataclasses.replace(obj, **{path[0]: t})
+    return dataclasses.replace(
+        obj, **{path[0]: with_tensor(getattr(obj, path[0]), path[1:], t)})

@@ -5,6 +5,13 @@ Reference: ptina_tpu/utils/mathutils.py.  Only the scalar-row helpers the
 engines use are ported (normaldist: the MLT mutation); the [..., 3] array
 helpers of the reference serve its non-SoA code, and the SoA vector
 algebra lives in utils/vec.py.
+
+clamp and clamp_min are the shading path's jnp.clip and jnp.maximum
+against a constant, written as torch.maximum / torch.minimum against a
+0-dim host tensor: at a bound their gradient is JAX's, half the incoming
+one (a tie splits it between the two operands), where torch.clamp passes
+all of it.  Their values are torch.clamp's, NaN included, but for the
+sign of a zero result (max(-0, +0) is +0).
 '''
 
 import math
@@ -17,8 +24,8 @@ INF = 1e6
 PI = math.pi
 TAU = 2.0 * math.pi
 
-__all__ = ['EPS', 'INF', 'PI', 'TAU', 'clamp', 'lerp', 'safe_sqrt',
-           'normaldist']
+__all__ = ['EPS', 'INF', 'PI', 'TAU', 'clamp', 'clamp_min', 'lerp',
+           'safe_sqrt', 'normaldist']
 
 
 def safe_sqrt(x):
@@ -28,8 +35,14 @@ def safe_sqrt(x):
     return torch.where(m, torch.sqrt(torch.where(m, x, 1.0)), 0.0)
 
 
+def clamp_min(x, lo):
+    '''jnp.maximum(x, lo) for a constant lo.'''
+    return torch.maximum(x, torch.tensor(lo, dtype=x.dtype))
+
+
 def clamp(x, lo=0.0, hi=1.0):
-    return torch.clamp(x, lo, hi)
+    '''jnp.clip(x, lo, hi) for constant bounds.'''
+    return torch.minimum(clamp_min(x, lo), torch.tensor(hi, dtype=x.dtype))
 
 
 def lerp(fac, src, dst):

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import TAU, safe_sqrt
+from ptina_tpu_torch.utils.mathutils import TAU, clamp_min, safe_sqrt
 
 __all__ = ['V3', 'vdot', 'vdot_or_zero', 'vnorm', 'vnormalize', 'vcross',
            'vlerp', 'vwhere', 'vavg3', 'vreflect', 'vrefract', 'vtanframe',
@@ -70,7 +70,7 @@ def vdot(a: V3, b: V3):
 
 
 def vdot_or_zero(a: V3, b: V3):
-    return torch.clamp_min(vdot(a, b), 0.0)
+    return clamp_min(vdot(a, b), 0.0)
 
 
 def vnorm(a: V3):
@@ -78,7 +78,7 @@ def vnorm(a: V3):
 
 
 def vnormalize(a: V3, eps=1e-12):
-    inv = 1.0 / torch.clamp_min(vnorm(a), eps)
+    inv = 1.0 / clamp_min(vnorm(a), eps)
     return a * inv
 
 

@@ -59,6 +59,7 @@ def test_imports_without_jax_nvcc_or_gpu():
         'import ptina_tpu_torch.worker, ptina_tpu_torch.engine\n'
         'import ptina_tpu_torch.checkpoint, ptina_tpu_torch.tone\n'
         'import ptina_tpu_torch.utils.trace, ptina_tpu_torch.io.readobj\n'
+        'import ptina_tpu_torch.diff\n'
         'from ptina_tpu_torch.intersect import blocked, dense_cast\n'
         'from ptina_tpu_torch.engine import fused\n'
         'for m in (dense_cast, fused, blocked):\n'
@@ -91,6 +92,23 @@ CARD_DEFAULT = [
 def test_entry_points_default_to_the_card(module, name):
     fn = getattr(importlib.import_module(f'ptina_tpu_torch.{module}'), name)
     assert inspect.signature(fn).parameters['device'].default == 'cuda'
+
+
+def test_gradient_entry_points_are_exported_and_follow_the_scene():
+    '''diff.py's five functions and the pair (engine.fused_trace_diff, the
+    autograd Function FusedTraceDiff) are exported; the gradients take no
+    device of their own: they run where the scene lies.'''
+    from ptina_tpu_torch import diff, engine
+    from ptina_tpu_torch.engine import fused
+    assert set(diff.__all__) == {'render_image_diff', 'image_loss',
+                                 'material_grad', 'texture_grad',
+                                 'inverse_render_step'}
+    for name in diff.__all__:
+        assert 'device' not in inspect.signature(getattr(diff, name)) \
+            .parameters
+    assert engine.fused_trace_diff is fused.fused_trace_diff
+    assert 'fused_trace_diff' in engine.__all__
+    assert issubclass(fused.FusedTraceDiff, torch.autograd.Function)
 
 
 @pytest.mark.parametrize('name', ['sobol_block', 'sobol_vgrid'])
