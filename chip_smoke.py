@@ -127,13 +127,39 @@ without the final line):
                 bit).  Per gradient call: wall ms of its forward and
                 backward, device ms (profiler; path_kernel by CUDA
                 events), busy share and peak memory.
+ 10. scale    — the scale-out path, each item with every count at 0 just
+                before it and read just after: render(spp=32, spb=8) and
+                spb=1 on the five scenes at 512^2 (equal films bit for
+                bit, 32 path launches each); parallel.render_sharded on a
+                mesh of 4 x the card at 512^2, no collective of
+                torch.distributed allowed while it renders: cornell_monkey
+                x 8 spp on the megakernel (4 x 8 path launches) and on the
+                wavefront (fused=False; 5 x 4 x 8 of each tree cast) and
+                cornell_highpoly x 2 spp on the blocked route (5 x 4 x 2
+                of each blocked cast), each equal to the one-band render
+                bit for bit, samples/s of both; train_step_sharded on
+                cornell_monkey at 512^2, 4 bands (5 x 4 of each tree
+                cast): the gradient allclose(rtol=1e-3) to the one-band
+                wavefront material_grad, two steps lower the loss, the
+                step's wall and device ms; the two-process launcher
+                (python -m ptina_tpu_torch.parallel, two ranks on the card
+                over gloo, 256^2 x 4 spp): the bands and the gathered film
+                equal a one-process render bit for bit, no collective
+                while rendering, the gradient all-reduce equal to the
+                in-process mean, wall and samples/s; lbvh_build on the
+                card over cornell_monkey's, envlight's and
+                cornell_highpoly's live faces (build ms, invariants) and
+                lbvh_traverse on 65,536 random rays of the first two
+                against brute (the same face on > 97%, t within 1e-4),
+                beside one closest_kernel launch on the same rays.
 
 The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
 plain version, its time, its plain version's time, its bound and what
 sets it, and library_ms, null: no single PyTorch call computes a ray-face
 closest hit, occlusion or path; launches_grad_* its launches in one
-gradient call of phase 9) and {"ok": true, "device": {...}}.
+gradient call of phase 9; launches_scale its launches in each item of
+phase 10) and {"ok": true, "device": {...}}.
 Imports nothing of JAX or ptina_tpu.
 '''
 
@@ -164,8 +190,12 @@ from ptina_tpu_torch.engine.path import (render, render_sample, pixel_grid,
 from ptina_tpu_torch.engine.preview import render_preview
 from ptina_tpu_torch.film import (new_film, film_to_image, film_splat,
                                   PASS_ALBEDO, PASS_NORMAL)
-from ptina_tpu_torch.intersect import blocked, dense_cast, dispatch
+from ptina_tpu_torch.intersect import blocked, brute, dense_cast, dispatch
+from ptina_tpu_torch.intersect.lbvh import lbvh_build, lbvh_traverse
 from ptina_tpu_torch.io.encoding import decode_numpy_array
+from ptina_tpu_torch.parallel import (make_mesh, render_sharded,
+                                      train_step_sharded)
+from ptina_tpu_torch.parallel.distributed import _collectives_raise
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
 from ptina_tpu_torch.scene import (make_scene, compute_node_bounds,
@@ -200,6 +230,12 @@ KELEMEN_CHAINS, KELEMEN_STEPS, KELEMEN_PATH_SPP = 2 ** 16, 128, 256
 # the gradients: inverse_render_step's steps and rate (the reference's
 # default rate is 0.1; at 1.0 four steps move the loss visibly)
 INVERSE_STEPS, INVERSE_LR = 4, 1.0
+# the scale-out phase: film bands on a mesh of 4 x the card (8 spp; 2 on
+# cornell_highpoly), render's samples per group, the two-process launcher
+# (256^2 x 4 spp), the LBVH oracle's random rays
+SCALE_BANDS, SCALE_SPP, SCALE_HIGHPOLY_SPP, SCALE_SPB = 4, 8, 2, 8
+TWO_PROC_RES, TWO_PROC_SPP = 256, 4
+LBVH_RAYS = 65_536
 # kernel vs plain tolerances (the packed-key t grid is 2^-12 relative;
 # FMA contraction in the kernel moves a verdict only on edge-grazing rays)
 MIN_AGREE = 0.9999
@@ -2098,6 +2134,257 @@ def phase_grad(card, scenes, highpoly):
     return dict(pair=pair, wavefront=wave, blocked=blocked_launches)
 
 
+# ---------------------------------------------------------------- phase 10
+
+def _same_film(what, got, ref):
+    if not torch.equal(got, ref):
+        d = (got - ref).abs()
+        raise AssertionError(f'{what}: films differ on {int((d > 0).sum())} '
+                             f'values, max {d.max().item():.3e}')
+
+
+def _wall_ms(fn, reps=3):
+    '''Median wall ms of `reps` calls of fn(), each ending in a device
+    synchronisation.'''
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def _scale_spb(card, scenes):
+    '''render(spp=32, spb=8) and spb=1 on the five scenes at 512^2: equal
+    films bit for bit, 32 path launches each render.'''
+    for name, scene in scenes.items():
+        films, walls = [], []
+        for spb in (SCALE_SPB, 1):
+            t0 = time.perf_counter()
+            film, grew = _launched(lambda: render(
+                scene, new_film(RES, RES, device=DEV), 0, spp=SPP, spb=spb))
+            walls.append(time.perf_counter() - t0)
+            _need(f'scale spb={spb} {name}', grew, _expect(path=SPP))
+            films.append(film)
+        _same_film(f'scale {name} spb={SCALE_SPB} vs spb=1', *films)
+        print(f'[scale] {card} | render {name} {RES}x{RES} x {SPP} spp: '
+              f'spb={SCALE_SPB} and spb=1 equal bit for bit, {SPP} path '
+              f'launches each; wall {walls[0]:.3f} / {walls[1]:.3f} s '
+              f'(first runs)')
+    return {'path': SPP}
+
+
+def _scale_bands(card, scenes, highpoly, mesh):
+    '''render_sharded over the mesh (4 x the card) against render: monkey
+    on the megakernel and the wavefront, highpoly on the blocked route,
+    bit for bit, with each band's launches and no collective; samples/s of
+    both.  Returns {route: launches and rates}.'''
+    monkey, n = scenes['cornell_monkey'], len(mesh)
+    cases = (
+        ('megakernel', 'cornell_monkey', monkey, SCALE_SPP, None,
+         lambda f: render(monkey, f, 0, spp=SCALE_SPP),
+         _expect(path=n * SCALE_SPP)),
+        ('wavefront', 'cornell_monkey', monkey, SCALE_SPP, False,
+         lambda f: _render_wavefront(monkey, f, 0, SCALE_SPP),
+         _expect(shade=DEPTH * n * SCALE_SPP, any=DEPTH * n * SCALE_SPP)),
+        ('blocked', 'cornell_highpoly', highpoly, SCALE_HIGHPOLY_SPP, None,
+         lambda f: render(highpoly, f, 0, spp=SCALE_HIGHPOLY_SPP),
+         _expect(blocked_shade=DEPTH * n * SCALE_HIGHPOLY_SPP,
+                 blocked_any=DEPTH * n * SCALE_HIGHPOLY_SPP)))
+    out = {}
+    for route, name, scene, spp, fused_route, one, want in cases:
+        def sharded(f, sc=scene, spp=spp, fr=fused_route):
+            with _collectives_raise():
+                return render_sharded(sc, f, 0, mesh, spp=spp, fused=fr)
+        ref = one(new_film(RES, RES, device=DEV))
+        film, grew = _launched(lambda: sharded(new_film(RES, RES,
+                                                        device=DEV)))
+        _need(f'scale bands {route}', grew, want)
+        _same_film(f'scale bands {route} {name}', film, ref)
+        _check_image(f'bands {route}', film, spp, RES)
+        ms_bands = _wall_ms(lambda: sharded(new_film(RES, RES, device=DEV)))
+        ms_one = _wall_ms(lambda: one(new_film(RES, RES, device=DEV)))
+        out[route] = dict(launches={k: v for k, v in grew.items() if v},
+                          sps_bands=spp / ms_bands * 1e3,
+                          sps_one=spp / ms_one * 1e3)
+        print(f'[scale] {card} | render_sharded {name}, {route}, {n} bands '
+              f'of {RES // n}x{RES} on {mesh[0]}, {spp} spp: equal to the '
+              f'one-band render bit for bit, no collective; launches '
+              f'{out[route]["launches"]}; {out[route]["sps_bands"]:.3f} '
+              f'samples/s (median of 3: {ms_bands:.3f} ms) against render '
+              f'{out[route]["sps_one"]:.3f} ({ms_one:.3f} ms)')
+    return out
+
+
+def _scale_grad(card, monkey, mesh):
+    '''train_step_sharded on cornell_monkey at 512^2 over the mesh, toward
+    the image with the white wall at half its basecolor (phase 9's
+    inverse_render_step target): the gradient against the one-band
+    wavefront material_grad (rtol 1e-3, tests/test_sharding.py:79), two
+    steps lower the loss; the step's wall and device ms.  Returns its
+    launches and times.'''
+    n = len(mesh)
+    fac = monkey.materials.fac.clone()
+    fac[0, 0, :3] *= 0.5
+    with torch.no_grad():
+        target = render_image_diff(with_tensor(monkey, ('materials', 'fac'),
+                                               fac), RES, RES,
+                                   _trace_diff=False)
+    film0 = new_film(RES, RES, device=DEV)
+
+    def step(scene):
+        return train_step_sharded(scene, film0, target, 0, mesh,
+                                  lr=INVERSE_LR)
+    (s1, l1), grew = _launched(lambda: step(monkey))
+    grew = {k: v for k, v in grew.items() if v}
+    _need('scale grad', grew, {'shade': DEPTH * n, 'any': DEPTH * n})
+    _, g1 = _loss_and_grad(monkey, target, ('materials', 'fac'),
+                           trace_diff=False)
+    g4 = (monkey.materials.fac - s1.materials.fac) / INVERSE_LR
+    atol = 1e-6 * g1.abs().max().item()
+    close = torch.isclose(g4, g1, rtol=1e-3, atol=atol)
+    _, l2 = step(s1)
+    wall = _wall_ms(lambda: step(monkey))
+    ka = _profile(lambda: step(monkey),
+                  lambda k: sum(_dev_us(e) for e in k) > 0)
+    dev_ms = sum(_dev_us(e) for e in ka) / 1e3
+    print(f'[scale] {card} | train_step_sharded cornell_monkey {RES}x{RES}, '
+          f'{n} bands, toward the wall at half its basecolor: launches '
+          f'{grew}; gradient allclose(rtol=1e-3, atol='
+          f'{atol:.2e}) to the one-band wavefront material_grad on '
+          f'{close.float().mean().item():.6f} of {g1.numel()} entries (max '
+          f'|diff| {(g4 - g1).abs().max().item():.3e}); losses '
+          f'{l1.item():.6e} -> {l2.item():.6e} (lr {INVERSE_LR}); wall '
+          f'{wall:.3f} ms a step (median of 3), device {dev_ms:.4f} ms '
+          f'(profiler)')
+    if not bool(close.all()) or not l2.item() < l1.item():
+        raise AssertionError('scale grad: sharded gradient or descent')
+    return dict(launches=grew, wall_ms=wall, dev_ms=dev_ms)
+
+
+def _scale_two_process(card):
+    '''The two-process launcher on the card (two ranks on cuda:0, gloo):
+    gathered film = one-process render bit for bit, no collective while
+    rendering, the gradient all-reduce = the in-process mean.'''
+    cmd = [sys.executable, '-m', 'ptina_tpu_torch.parallel', '--res',
+           str(TWO_PROC_RES), '--spp', str(TWO_PROC_SPP), '--device', DEV,
+           '--timeout', '300']
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=ROOT)
+    lines = [line for line in r.stdout.splitlines() if line.startswith('{')]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f'two-process launcher exit {r.returncode}:\n'
+                             f'{r.stdout[-3000:]}\n{r.stderr[-3000:]}')
+    out = json.loads(lines[-1])
+    print(f'[scale] {card} | two processes, {TWO_PROC_RES}x{TWO_PROC_RES} x '
+          f'{TWO_PROC_SPP} spp: {json.dumps(out)}')
+    if out['world_sizes_seen'] != [2, 2] or not out['band_equal'] \
+            or not out['gathered_equal'] or out['render_collectives'] \
+            or not out['grad_allclose']:
+        raise AssertionError(f'two-process launcher: {out}')
+    return out
+
+
+def _lbvh_invariants(name, bvh):
+    '''tests/test_lbvh.py:22-44's invariants, vectorised: every face one
+    leaf, every node but the root one child, parent boxes hold their
+    children's.'''
+    n = bvh.leaf.shape[0]
+    child = bvh.child.long()
+    ok = torch.equal(torch.sort(bvh.leaf.long())[0],
+                     torch.arange(n, device=DEV))
+    want = torch.cat([torch.arange(n, device=DEV),
+                      torch.arange(n + 1, 2 * n - 1, device=DEV)])
+    ok &= torch.equal(torch.sort(child.reshape(-1))[0], want)
+    for c in (child[:, 0], child[:, 1]):
+        leaf = (c < n)[:, None]
+        li, ni = c.clamp(max=n - 1), (c - n).clamp(min=0)
+        cmin = torch.where(leaf, bvh.leaf_bmin[li], bvh.bmin[ni])
+        cmax = torch.where(leaf, bvh.leaf_bmax[li], bvh.bmax[ni])
+        ok &= bool((bvh.bmin <= cmin).all()) \
+            and bool((bvh.bmax >= cmax).all())
+    if not ok:
+        raise AssertionError(f'lbvh {name}: build invariants')
+
+
+def _scale_lbvh(card, scenes, highpoly):
+    '''lbvh_build on the card over the live faces of cornell_monkey,
+    envlight and cornell_highpoly (build ms, invariants); lbvh_traverse on
+    65,536 random rays of the first two against brute.cast_closest (the
+    same index on > 97%, t within rtol 1e-4 where they agree,
+    tests/test_aux.py:101-105), beside the table-level
+    dispatch.cast_closest (closest_kernel, launched once) on those rays.
+    Returns the rows of the [scale] lines.'''
+    rng = np.random.RandomState(10)
+    out = {'closest': 0}
+    for name, scene in (('cornell_monkey', scenes['cornell_monkey']),
+                        ('envlight', scenes['envlight']),
+                        ('cornell_highpoly', highpoly)):
+        nf = int(scene.nfaces)
+        tris = scene.tri_pos[:nf].contiguous()
+        bvh = lbvh_build(tris)
+        build_ms = _wall_ms(lambda: lbvh_build(tris))
+        _lbvh_invariants(name, bvh)
+        cpu = lbvh_build(tris.cpu())
+        same_build = all(torch.equal(getattr(bvh, f).cpu(), getattr(cpu, f))
+                         for f in ('leaf', 'child', 'bmin', 'bmax'))
+        out[name] = dict(faces=nf, build_ms=build_ms)
+        line = (f'[scale] {card} | lbvh_build {name}: {nf} faces in '
+                f'{build_ms:.3f} ms (median of 3), invariants hold, equal to '
+                f'the CPU build: {same_build}')
+        if scene is highpoly:
+            print(line)
+            continue
+        ro, rd, _, _ = _rays(rng, scene, LBVH_RAYS)
+        ro3 = torch.stack([ro.x, ro.y, ro.z], 1)
+        rd3 = torch.stack([rd.x, rd.y, rd.z], 1)
+        none = torch.full((LBVH_RAYS,), -1, dtype=torch.int32, device=DEV)
+        w2b = scene.tri_w2b[:nf].contiguous()
+        ht = lbvh_traverse(bvh, w2b, ro3, rd3, none)
+        trav_ms = _wall_ms(lambda: lbvh_traverse(bvh, w2b, ro3, rd3, none))
+        hb = brute.cast_closest(ro, rd, w2b, none)
+        hk, grew = _launched(lambda: intersect.cast_closest(ro, rd, w2b,
+                                                            none))
+        _need(f'lbvh oracle {name}', grew, _expect(closest=1))
+        out['closest'] += 1
+        kern_ms = _device_ms(lambda: intersect.cast_closest(ro, rd, w2b,
+                                                            none))
+        same = hb.index == ht.index
+        agree = same.float().mean().item()
+        hits = hb.hit & same
+        t_ok = bool(torch.allclose(hb.t[hits], ht.t[hits], rtol=1e-4,
+                                   atol=1e-4))
+        kern_same = (hk.index == ht.index).float().mean().item()
+        out[name].update(traverse_ms=trav_ms, closest_kernel_ms=kern_ms,
+                         agree=agree)
+        print(line + f'; lbvh_traverse on {LBVH_RAYS} random rays: hit '
+              f'{hb.hit.float().mean().item():.4f}, the same face as brute '
+              f'on {agree:.6f} (> 0.97), t within rtol 1e-4 where they '
+              f'agree: {t_ok}; {trav_ms:.3f} ms wall (median of 3) against '
+              f'closest_kernel {kern_ms:.4f} ms device (the same face as '
+              f'lbvh_traverse on {kern_same:.6f})')
+        if not agree > 0.97 or not t_ok:
+            raise AssertionError(f'lbvh {name}: traversal vs brute')
+    return out
+
+
+def phase_scale(card, scenes, highpoly):
+    '''Phase 10 (module docstring): spb, film bands, the sharded gradient
+    step, the two-process launcher, the LBVH oracle; each item with every
+    count at 0 just before it and read just after.'''
+    t0 = time.perf_counter()
+    mesh = make_mesh([DEV] * SCALE_BANDS)
+    out = {'spb': _scale_spb(card, scenes)}
+    out['bands'] = _scale_bands(card, scenes, highpoly, mesh)
+    out['grad'] = _scale_grad(card, scenes['cornell_monkey'], mesh)
+    out['two_process'] = _scale_two_process(card)
+    out['lbvh'] = _scale_lbvh(card, scenes, highpoly)
+    print(f'[scale] phase took {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main():
     card = phase_device()
     ptxas = phase_build()
@@ -2119,6 +2406,7 @@ def main():
     kt, pk, bounds = phase_timings(card, scenes, tables, highpoly)
     eng = phase_engines(card, scenes, highpoly)
     grad = phase_grad(card, scenes, highpoly)
+    scale = phase_scale(card, scenes, highpoly)
 
     # launches per sample of each kernel's route: the dense tree casts on
     # the wavefront (fused=False) scenes, the megakernel on the five, the
@@ -2150,10 +2438,19 @@ def main():
     for k in ('blocked_shade', 'blocked_any'):
         engine_extra[k]['launches_grad_blocked'] = grad['blocked'][k]
 
+    def scale_launches(k):
+        '''Each phase-10 item's launches of kernel k.'''
+        bands = {f'bands_{route}': v['launches'].get(k, 0)
+                 for route, v in scale['bands'].items()}
+        return {'spb_render': scale['spb'].get(k, 0), **bands,
+                'grad_sharded': scale['grad']['launches'].get(k, 0),
+                'lbvh_oracle': scale['lbvh']['closest'] * (k == 'closest')}
+
     def entry(k, source, launches, ms, plain_ms, call_ms, bound, **extra):
         return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
                 'replaces': REPLACES[k], 'launches': launches,
-                'launches_per_sample': per_sample[k], **errs[k], 'ms': ms,
+                'launches_per_sample': per_sample[k],
+                'launches_scale': scale_launches(k), **errs[k], 'ms': ms,
                 'plain_ms': plain_ms, 'bound_ms': bound[0],
                 'bound_by': bound[1], 'library_ms': None, 'call_ms': call_ms,
                 'ptxas': ptxas.get(f'{k}_kernel', ''), **extra}

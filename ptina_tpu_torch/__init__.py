@@ -37,7 +37,12 @@ checkpoints (checkpoint.py), parameters (utils/params.py) and logging and
 profiling (utils/trace.py); and the gradients (diff.py: render_image_diff,
 image_loss, material_grad, texture_grad, inverse_render_step), autograd
 through the wavefront with the casts detached, the forward of eligible
-scenes from the megakernel (engine/fused.fused_trace_diff).
+scenes from the megakernel (engine/fused.fused_trace_diff); tiled renders
+(render_sample's x0, y0, full_res) and render's spb groups; film bands
+over a mesh of devices, the data-parallel gradient step and the
+torch.distributed runtime with its two-process launcher (parallel/); the
+daemon thread and the orbit camera (utils/daemon.py, utils/control.py);
+and the BVH oracles (intersect/lbvh.py, intersect/middlebvh.py).
 '''
 
 __version__ = '0.1.0'

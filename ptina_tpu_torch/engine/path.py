@@ -49,7 +49,7 @@ from ptina_tpu_torch.sampling.sobol import (sample_dims, pixel_rotation,
                                            sobol_block)
 from ptina_tpu_torch.film import film_add
 
-__all__ = ['MAX_DEPTH', 'PATH_DIMS', 'power_heuristic', 'path_trace',
+__all__ = ['MAX_DEPTH', 'PATH_DIMS', 'SPB', 'power_heuristic', 'path_trace',
            'pixel_grid', 'render_sample', 'render']
 
 MAX_DEPTH = 5
@@ -186,47 +186,83 @@ def _takes_fused(scene, fused, model):
     return fused_eligible(scene) if fused is None else bool(fused)
 
 
-def render_sample(scene, film, sample_index, fused=None, model='disney',
-                  max_depth=MAX_DEPTH, rot=None):
-    '''Accumulate one progressive sample over the whole film into pass 0,
-    in place; returns the film.
+def render_sample(scene, film, sample_index, x0=0, y0=0, full_res=None,
+                  fused=None, model='disney', max_depth=MAX_DEPTH, rot=None):
+    '''Accumulate one progressive sample over the film into pass 0, in
+    place; returns the film.
 
+    The film may be a tile or band of a larger frame: x0 / y0 are its
+    global pixel offsets and full_res the whole frame's (nx, ny) (default:
+    the film is the frame).  The NDC mapping, the Sobol rotation and the
+    uniforms depend on global pixel ids only, so a tile renders the same
+    bits as the same rows of the whole frame (parallel/sharding.py renders
+    film bands this way).
     fused: for the Disney model, None = the megakernel where the scene is
     eligible, else the wavefront; True = the megakernel; False = the
     wavefront.  Any other model renders the wavefront (module
-    docstring).  rot: optional precomputed pixel_rotation for the
-    wavefront — pass it from per-sample loops.  The reference's tile
-    offsets (x0, y0, full_res) serve its tiled and distributed engines and
-    come with them; the megakernel entry takes them already
-    (fused_trace_primary).'''
+    docstring).  rot: optional precomputed pixel_rotation of this tile's
+    global pixel ids for the wavefront — pass it from per-sample loops.'''
     _, _, nx, ny = film.shape
+    fnx, fny = full_res if full_res is not None else (nx, ny)
     dims = 2 + 6 * max_depth
     if _takes_fused(scene, fused, model):
         from ptina_tpu_torch.engine.fused import fused_trace_primary
         rad = fused_trace_primary(scene, sobol_block(sample_index, dims),
-                                  nx, ny)
+                                  nx, ny, x0, y0, fnx, fny)
     else:
-        ii, jj = pixel_grid(nx, ny, device=film.device)
+        ii, jj = pixel_grid(nx, ny, x0, y0, device=film.device)
         u = sample_dims(sample_index, ii, jj, dims, rot=rot)
-        x = (ii.to(torch.float32) + u[0]) / nx * 2.0 - 1.0
-        y = (jj.to(torch.float32) + u[1]) / ny * 2.0 - 1.0
+        x = (ii.to(torch.float32) + u[0]) / fnx * 2.0 - 1.0
+        y = (jj.to(torch.float32) + u[1]) / fny * 2.0 - 1.0
         ro, rd = camera_rays(scene.cam_v2w, x, y)
         rad = path_trace(scene, ro, rd, u, model)
     return film_add(film, 0, rad.x, rad.y, rad.z, torch.ones_like(rad.x))
 
 
-def render(scene, film, start_sample, spp=1, model='disney',
-           max_depth=MAX_DEPTH):
-    '''Render `spp` progressive samples from `start_sample` into the film
-    (in place; returns it), each through render_sample's automatic route.
-    On the wavefront the per-pixel rotation is sample-invariant and
-    computed once per call.'''
+def _render_step(scene, film, start_sample, n, model='disney',
+                 max_depth=MAX_DEPTH, x0=0, y0=0, full_res=None, fused=None):
+    '''`n` progressive samples from start_sample through render_sample (its
+    route by `fused`) into the film tile at (x0, y0) of full_res, with the
+    sample-invariant work hoisted: on the wavefront the per-pixel rotation
+    is made once for the n samples (the megakernel makes it in-kernel).
+    The film is the same bits for every grouping of the samples.'''
     _, _, nx, ny = film.shape
     rot = None
-    if not _takes_fused(scene, None, model):
-        ii, jj = pixel_grid(nx, ny, device=film.device)
+    if n > 1 and not _takes_fused(scene, fused, model):
+        ii, jj = pixel_grid(nx, ny, x0, y0, device=film.device)
         rot = pixel_rotation(ii, jj, 2 + 6 * max_depth)
-    for s in range(spp):
-        film = render_sample(scene, film, int(start_sample) + s, model=model,
-                             max_depth=max_depth, rot=rot)
+    for s in range(n):
+        film = render_sample(scene, film, int(start_sample) + s, x0, y0,
+                             full_res, fused, model, max_depth, rot)
+    return film
+
+
+SPB = 8  # samples per group, the reference's samples per dispatch
+
+
+def render(scene, film, start_sample, spp=1, model='disney', spb=None,
+           max_depth=MAX_DEPTH):
+    '''Render `spp` progressive samples from `start_sample` into the film
+    (in place; returns it), each through render_sample's automatic route,
+    in groups of `spb` samples (None = SPB) by the reference's rule
+    (ptina_tpu/engine/path.py:268-283): a group of spb while at least spb
+    samples remain, then single samples.  A group makes its
+    sample-invariant work once (_render_step: the wavefront's per-pixel
+    rotation); a single sample makes it itself, as the reference's spb=1
+    step does.  The film is the same bits for every spb.
+
+    The reference scans a group in one device dispatch; here every sample
+    still launches on its own and its Sobol point rides in the launch
+    parameters.  Moving the point into a device buffer and capturing a
+    group as one CUDA graph is the megakernel's host-path redesign
+    (ROADMAP queue 2 (c)), not done here.'''
+    spb = SPB if spb is None else int(spb)
+    if spb < 1:
+        raise ValueError(f'spb must be at least 1, got {spb}')
+    s = 0
+    while s < spp:
+        step = spb if spp - s >= spb else 1
+        film = _render_step(scene, film, int(start_sample) + s, step,
+                            model=model, max_depth=max_depth)
+        s += step
     return film
