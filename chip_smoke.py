@@ -152,6 +152,41 @@ without the final line):
                 lbvh_traverse on 65,536 random rays of the first two
                 against brute (the same face on > 97%, t within 1e-4),
                 beside one closest_kernel launch on the same rays.
+ 11. frontends — the scene front-ends feeding the worker at 512^2, each
+                item with every count at 0 just before it and read just
+                after, its assets written at run time under build/:
+                (a) cornell_monkey as a glTF asset (five primitives
+                under TRS and `matrix` nodes, uint16 / uint32 indices,
+                one byteStride view), once .gltf with a data-URI buffer
+                and once .glb, through io.readgltf and the worker at 32
+                spp: 32 path launches and no cast each, both images and
+                that of the worker fed compose_multiple_meshes of the
+                same primitives equal bit for bit, the megakernel against
+                its twin on the loaded scene; (b) matball as a GLB with
+                its roughness ramp an 8-bit PNG encoded here (io._png)
+                and bound as the metallicRoughness texture: the ramp
+                decodes as encoded, 32 path launches on a scene with a
+                texture atlas, the megakernel against its twin; (c)
+                cornell_highpoly as a GLB through the worker at 8 spp:
+                40 blocked_shade + 40 blocked_any launches, the composed
+                arrays' image bit for bit; (d) readply of binary and
+                ASCII PLYs of cornell_highpoly, and writeobj of
+                cornell_monkey into worker.load_model(path) with
+                obj_mtlids' ids: arrays exact; (e) the Blender engine's
+                calls without bpy through DaemonModule(worker): the sync
+                (principled_to_material, light_to_pool_entry,
+                world_background, sync_worker) of a two-object scene,
+                the final render (32 x render(), one render_preview(),
+                the three RENDER_PASSES), its Combined pass equal to the
+                same calls on this thread bit for bit, a daemon-thread
+                error raised here, and the ViewportRefiner ladder from
+                1/8 of 512^2 through viewport_pass; (f) the six examples
+                (python -m ptina_tpu_torch.examples.<name>) as
+                subprocesses at once: exit 0, smoke_render 512 32
+                monkey's printed mean equal to this process's render,
+                their PNGs decoded.  Prints the readers' seconds, the
+                time from load to the first image, samples/s and the
+                viewport rungs' ms.
 
 The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
@@ -159,17 +194,21 @@ plain version, its time, its plain version's time, its bound and what
 sets it, and library_ms, null: no single PyTorch call computes a ray-face
 closest hit, occlusion or path; launches_grad_* its launches in one
 gradient call of phase 9; launches_scale its launches in each item of
-phase 10) and {"ok": true, "device": {...}}.
+phase 10; launches_frontends its launches in each item of phase 11) and
+{"ok": true, "device": {...}}.
 Imports nothing of JAX or ptina_tpu.
 '''
 
+import base64
 import contextlib
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -178,6 +217,10 @@ import numpy as np
 import torch
 
 from ptina_tpu_torch import intersect, worker
+from ptina_tpu_torch.blender import (PRINCIPLED_SOCKETS, RENDER_PASSES,
+                                     ViewportRefiner, light_to_pool_entry,
+                                     principled_to_material, sync_worker,
+                                     viewport_pass, world_background)
 from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.diff import (_loss_and_grad, inverse_render_step,
                                   material_grad, render_image_diff,
@@ -192,7 +235,11 @@ from ptina_tpu_torch.film import (new_film, film_to_image, film_splat,
                                   PASS_ALBEDO, PASS_NORMAL)
 from ptina_tpu_torch.intersect import blocked, brute, dense_cast, dispatch
 from ptina_tpu_torch.intersect.lbvh import lbvh_build, lbvh_traverse
+from ptina_tpu_torch.io import _png as png_codec, matrix as gl_matrix
 from ptina_tpu_torch.io.encoding import decode_numpy_array
+from ptina_tpu_torch.io.multimesh import compose_multiple_meshes
+from ptina_tpu_torch.io.readgltf import readgltf
+from ptina_tpu_torch.io.readobj import obj_mtlids, readply, writeobj
 from ptina_tpu_torch.parallel import (make_mesh, render_sharded,
                                       train_step_sharded)
 from ptina_tpu_torch.parallel.distributed import _collectives_raise
@@ -204,7 +251,11 @@ from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene,
                                     matball, BENCH_CAMERA, _cornell_shell,
                                     _cornell_boxes, _mesh_to_vertices,
-                                    _materials, _ceiling_light)
+                                    _materials, _ceiling_light, _blob_parts,
+                                    _quad, _uv_sphere, _sphere_smooth_normals,
+                                    _sphere_uvs, _CORNELL_MATERIALS_SPEC)
+from ptina_tpu_torch.utils.daemon import DaemonModule
+from ptina_tpu_torch.utils.trace import set_verbosity
 from ptina_tpu_torch.utils.vec import V3
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2385,6 +2436,712 @@ def phase_scale(card, scenes, highpoly):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+# the front-ends at the main path's width: the glTF monkey and matball at
+# 512^2 x 32 spp, the highpoly GLB at 512^2 x 8 spp (the blocked route's
+# cell), the Blender engine's final render at 512^2 x 32 spp and its
+# viewport ladder from 1/8 of 512^2
+FRONT_SPP = 32
+EXAMPLE_TIMEOUT = 600
+EXAMPLES = ('smoke_render', 'coverage', 'matball', 'metropolis', 'objloader',
+            'interactive')
+# the smoke render the verify notes start the system with, at the main
+# path's width
+SMOKE_ARGS = (str(RES), str(SPP), 'monkey')
+_GL_COMPONENT = {np.dtype(np.float32): 0x1406, np.dtype(np.uint8): 0x1401,
+                 np.dtype(np.uint16): 0x1403, np.dtype(np.uint32): 0x1405}
+_GL_TYPE = {1: 'SCALAR', 2: 'VEC2', 3: 'VEC3'}
+
+
+def write_gltf(path, meshes, nodes, materials=(), images=(), mode='gltf'):
+    '''Write a glTF 2.0 asset.  meshes: one list of primitive dicts a
+    mesh, each with 'position' [V, 3] float32 and optionally 'normal' [V,
+    3], 'texcoord' [V, 2], 'indices' [K] (uint8 / 16 / 32), 'material'
+    and 'interleave' (the vertex attributes in one byteStride view).
+    nodes: glTF node dicts (the roots are the nodes no node lists as a
+    child).  materials: glTF material dicts; images: PNG bytes, each one
+    texture.  mode: 'gltf' (the buffer as a data URI), 'external' (a
+    .bin file beside it) or 'glb'.'''
+    blob, views, accessors = bytearray(), [], []
+
+    def view(data, stride=None):
+        blob.extend(b'\0' * (-len(blob) % 4))
+        views.append({'buffer': 0, 'byteOffset': len(blob),
+                      'byteLength': len(data)})
+        if stride:
+            views[-1]['byteStride'] = stride
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(v, arr, offset=0):
+        arr = arr.reshape(arr.shape[0], -1)
+        accessors.append({'bufferView': v, 'byteOffset': offset,
+                          'componentType': _GL_COMPONENT[arr.dtype],
+                          'count': arr.shape[0],
+                          'type': _GL_TYPE[arr.shape[1]]})
+        return len(accessors) - 1
+
+    gl_meshes = []
+    for prims in meshes:
+        out = []
+        for p in prims:
+            cols = [(name, np.ascontiguousarray(p[key], np.float32))
+                    for name, key in (('POSITION', 'position'),
+                                      ('NORMAL', 'normal'),
+                                      ('TEXCOORD_0', 'texcoord'))
+                    if p.get(key) is not None]
+            attrs = {}
+            if p.get('interleave'):
+                rows = np.concatenate([a for _, a in cols], axis=1)
+                v, off = view(rows.tobytes(), stride=rows.shape[1] * 4), 0
+                for name, a in cols:
+                    attrs[name] = accessor(v, a, off)
+                    off += a.shape[1] * 4
+            else:
+                for name, a in cols:
+                    attrs[name] = accessor(view(a.tobytes()), a)
+            pos = accessors[attrs['POSITION']]
+            pos['min'] = cols[0][1].min(0).tolist()
+            pos['max'] = cols[0][1].max(0).tolist()
+            prim = {'attributes': attrs}
+            if p.get('indices') is not None:
+                idx = np.ascontiguousarray(p['indices'])
+                prim['indices'] = accessor(view(idx.tobytes()), idx)
+            if p.get('material') is not None:
+                prim['material'] = int(p['material'])
+            out.append(prim)
+        gl_meshes.append({'primitives': out})
+    children = {c for n in nodes for c in n.get('children', ())}
+    model = {'asset': {'version': '2.0'}, 'scene': 0,
+             'scenes': [{'nodes': [i for i in range(len(nodes))
+                                   if i not in children]}],
+             'nodes': list(nodes), 'meshes': gl_meshes}
+    if materials:
+        model['materials'] = list(materials)
+    if images:
+        model['images'] = [{'bufferView': view(png), 'mimeType': 'image/png'}
+                           for png in images]
+        model['textures'] = [{'source': i} for i in range(len(images))]
+    model.update(accessors=accessors, bufferViews=views,
+                 buffers=[{'byteLength': len(blob)}])
+    if mode == 'glb':
+        js = json.dumps(model).encode()
+        js += b' ' * (-len(js) % 4)
+        blob.extend(b'\0' * (-len(blob) % 4))
+        with open(path, 'wb') as f:
+            f.write(struct.pack('<III', 0x46546C67, 2,
+                                12 + 8 + len(js) + 8 + len(blob)))
+            f.write(struct.pack('<II', len(js), 0x4E4F534A) + js)
+            f.write(struct.pack('<II', len(blob), 0x004E4942) + bytes(blob))
+        return
+    if mode == 'external':
+        bin_name = os.path.splitext(os.path.basename(path))[0] + '.bin'
+        with open(os.path.join(os.path.dirname(path), bin_name), 'wb') as f:
+            f.write(blob)
+        model['buffers'][0]['uri'] = bin_name
+    else:
+        model['buffers'][0]['uri'] = ('data:application/octet-stream;base64,'
+                                      + base64.b64encode(blob).decode())
+    with open(path, 'w') as f:
+        json.dump(model, f)
+
+
+def _node_local(node):
+    '''A node's local matrix, as io.readgltf computes it.'''
+    if 'matrix' in node:
+        return np.asarray(node['matrix'], float).reshape(4, 4).T
+    local = gl_matrix.identity()
+    if 'scale' in node:
+        local = gl_matrix.scale(node['scale']) @ local
+    if 'rotation' in node:
+        local = gl_matrix.quaternion(node['rotation']) @ local
+    if 'translation' in node:
+        local = gl_matrix.translate(node['translation']) @ local
+    return local
+
+
+def mesh_worlds(nodes):
+    '''[(mesh index, world matrix)] of the node hierarchy in readgltf's
+    walk order, each world composed as it composes it (parent @ local).'''
+    out = []
+
+    def walk(i, world):
+        world = world @ _node_local(nodes[i])
+        if 'mesh' in nodes[i]:
+            out.append((nodes[i]['mesh'], world))
+        for c in nodes[i].get('children', ()):
+            walk(c, world)
+    children = {c for n in nodes for c in n.get('children', ())}
+    for i in range(len(nodes)):
+        if i not in children:
+            walk(i, gl_matrix.identity())
+    return out
+
+
+def gl_primitives(verts, mtlids, world, index_dtype, interleave=False):
+    '''One mesh part ([F*3, 8] vertices in the world, [F] ids) as glTF
+    primitives, one a material: positions and normals taken into the
+    frame of `world` (a rotation, a uniform scale and a translation), the
+    vertex rows deduplicated, indices of `index_dtype`.'''
+    lin = world[:3, :3]
+    rot = lin / np.cbrt(np.linalg.det(lin))
+    pos = np.concatenate([verts[:, :3].astype(np.float64),
+                          np.ones((len(verts), 1))], 1) \
+        @ np.linalg.inv(world).T
+    rows = np.concatenate([pos[:, :3], verts[:, 3:6].astype(np.float64) @ rot,
+                           verts[:, 6:8]], 1).astype(np.float32)
+    prims = []
+    for m in dict.fromkeys(mtlids.tolist()):
+        corners = rows.reshape(-1, 3, 8)[mtlids == m].reshape(-1, 8)
+        uniq, idx = np.unique(corners, axis=0, return_inverse=True)
+        prims.append(dict(position=uniq[:, :3], normal=uniq[:, 3:6],
+                          texcoord=uniq[:, 6:8],
+                          indices=idx.reshape(-1).astype(index_dtype),
+                          material=m, interleave=interleave))
+    return prims
+
+
+def composed_inputs(meshes, nodes):
+    '''The (p, n, t, world, mtlid) primitives readgltf hands
+    compose_multiple_meshes for the asset, in its walk order.'''
+    out = []
+    for mi, world in mesh_worlds(nodes):
+        for p in meshes[mi]:
+            f = p['indices'].astype(np.int64)
+            t = p.get('texcoord')
+            out.append((p['position'][f].reshape(-1, 3, 3),
+                        p['normal'][f].reshape(-1, 3, 3),
+                        None if t is None else t[f].reshape(-1, 3, 2),
+                        world, p['material']))
+    return out
+
+
+def _quat(axis, deg):
+    axis = np.asarray(axis, float) / np.linalg.norm(axis)
+    h = np.radians(deg) / 2
+    return [*(axis * np.sin(h)).tolist(), float(np.cos(h))]
+
+
+def gl_materials(mats):
+    '''glTF pbrMetallicRoughness of the port's cornell materials (base
+    color, metallic and roughness factors), and the worker's materials
+    that readgltf returns for them.'''
+    gl, ours = [], []
+    for mat in mats:
+        base = [*np.asarray(mat[0][0], np.float64).tolist(), 1.0]
+        gl.append({'pbrMetallicRoughness': {
+            'baseColorFactor': base, 'metallicFactor': float(mat[1][0]),
+            'roughnessFactor': float(mat[2][0])}})
+        ours.append(((base, -1), (float(mat[1][0]), -1),
+                     (float(mat[2][0]), -1)))
+    return gl, ours
+
+
+def monkey_asset():
+    '''cornell_monkey as a glTF asset: the shell (three primitives, one a
+    material, uint16 indices) under a TRS root, the blob (interleaved,
+    one byteStride view, uint32 indices) under a `matrix` child, the box
+    under a TRS grandchild.  Returns (meshes, nodes, gl materials, the
+    worker's materials).'''
+    nodes = [
+        {'translation': [0.25, -0.5, 0.125], 'rotation': _quat((0, 1, 0), 30),
+         'scale': [1.25, 1.25, 1.25], 'children': [1, 2]},
+        {'mesh': 0},
+        {'matrix': (gl_matrix.translate((0.0, 0.5, 0.0))
+                    @ gl_matrix.quaternion(_quat((1, 0, 0), 10))).T
+         .reshape(-1).tolist(), 'mesh': 1, 'children': [3]},
+        {'translation': [-0.5, 0.0, 0.25], 'mesh': 2},
+    ]
+    worlds = dict(mesh_worlds(nodes))
+    (shell, ms), (blob, mb), (box, mx) = _blob_parts()
+    meshes = [gl_primitives(shell, ms, worlds[0], np.uint16),
+              gl_primitives(blob, mb, worlds[1], np.uint32, interleave=True),
+              gl_primitives(box, mx, worlds[2], np.uint16)]
+    gl, ours = gl_materials(_materials())
+    return meshes, nodes, gl, ours
+
+
+def ramp_png():
+    '''The benchmark's 64x64 grey ramp (_bench_texture) as 8-bit RGB, in
+    the film's axis order, and its PNG (rows are the second axis, as
+    glTF images are stored and readgltf swaps them back).'''
+    ramp = np.round(_bench_texture() * 255).astype(np.uint8)
+    return ramp, png_codec.encode(np.ascontiguousarray(ramp.swapaxes(0, 1)))
+
+
+def matball_asset(png):
+    '''scenes.matball with its roughness ramp: the ground quad and the
+    2,214-triangle sphere (spherical UVs) under one node, the ramp an
+    embedded PNG bound as the ball's metallicRoughness texture (metallic
+    factor 0, roughness factor 1).'''
+    ground = np.asarray(_quad([-6, 0, 6], [6, 0, 6], [6, 0, -6], [-6, 0, -6]),
+                        np.float32)
+    ball = _uv_sphere((0.0, 1.0, 0.0), 1.0, nu=48, nv=24)
+    verts = np.concatenate([
+        _mesh_to_vertices(ground),
+        _mesh_to_vertices(ball, normals=_sphere_smooth_normals(
+            ball, (0.0, 1.0, 0.0)), uvs=_sphere_uvs(ball, (0.0, 1.0, 0.0)))])
+    mtlids = np.asarray([0, 0] + [1] * ball.shape[0], np.int32)
+    mats = _materials()
+    gl, ours = gl_materials([mats[0], mats[3]])
+    gl[1]['pbrMetallicRoughness'].update(
+        metallicFactor=0.0, roughnessFactor=1.0,
+        metallicRoughnessTexture={'index': 0})
+    ours[1] = (ours[1][0], (0.0, 0), (1.0, 0))
+    meshes = [gl_primitives(verts, mtlids, np.eye(4), np.uint16)]
+    return meshes, [{'mesh': 0}], gl, ours, [png]
+
+
+def highpoly_asset():
+    '''cornell_highpoly (101,782 faces) as three meshes of one node each,
+    uint32 indices, the blob interleaved.'''
+    parts = _blob_parts(320, 160)
+    meshes = [gl_primitives(v, m, np.eye(4), np.uint32, interleave=i == 1)
+              for i, (v, m) in enumerate(parts)]
+    gl, ours = gl_materials(_materials())
+    return meshes, [{'mesh': i} for i in range(3)], gl, ours
+
+
+def write_ply(path, v, faces, binary):
+    '''A PLY of vertex positions [V, 3] float32 and triangles [F, 3]:
+    binary little-endian or ASCII, faces as uchar-counted int lists.'''
+    head = (f'ply\nformat {"binary_little_endian" if binary else "ascii"} '
+            f'1.0\ncomment chip_smoke\nelement vertex {len(v)}\n'
+            f'property float x\nproperty float y\nproperty float z\n'
+            f'element face {len(faces)}\n'
+            f'property list uchar int vertex_indices\nend_header\n')
+    with open(path, 'wb') as f:
+        f.write(head.encode())
+        if binary:
+            rec = np.zeros(len(faces), [('n', 'u1'), ('i', '<i4', 3)])
+            rec['n'], rec['i'] = 3, faces
+            f.write(np.ascontiguousarray(v, '<f4').tobytes() + rec.tobytes())
+        else:
+            f.write(''.join(f'{x} {y} {z}\n' for x, y, z in v).encode())
+            f.write(''.join(f'3 {a} {b} {c}\n' for a, b, c in faces).encode())
+
+
+def obj_of_vertices(verts, mtlids):
+    '''readobj's dict for [F*3, 8] vertices: one v / vt / vn row a corner,
+    usemtl runs named m<id>.'''
+    n = len(verts)
+    f = np.repeat(np.arange(n, dtype=np.int32).reshape(-1, 3, 1), 3, axis=2)
+    runs = [(i, f'm{m}') for i, m in enumerate(mtlids.tolist())
+            if i == 0 or m != mtlids[i - 1]]
+    return dict(v=verts[:, :3], vt=verts[:, 6:8], vn=verts[:, 3:6], f=f,
+                usemtl=runs, mtllib=None)
+
+
+def load_worker(w, verts, mtlids, mats, images=(), res=RES):
+    '''The worker calls of a front-end: model, materials, images, the
+    benchmark's ceiling light and world, res^2, the camera, then
+    build_tree.  Returns build_tree's seconds (make_scene).'''
+    w.load_model(verts, mtlids)
+    w.load_materials(mats)
+    w.load_images(list(images))
+    w.clear_lights()
+    light = _ceiling_light()
+    world = np.eye(4)
+    world[:3, :3], world[:3, 3] = light['axes'], light['pos']
+    w.add_light(world, light['color'], light['size'], 'AREA')
+    w.set_world_light((0.05, 0.05, 0.05, 1.0), -1)
+    w.set_size(res, res)
+    w.set_camera(BENCH_CAMERA)
+    t0 = time.perf_counter()
+    w.build_tree()
+    return time.perf_counter() - t0
+
+
+def _front_render(what, load, spp, want):
+    '''worker.init, load(), then spp x worker.render(), the counts at 0
+    just before and read just after; fails unless the launches are
+    `want`.  Returns (image, seconds to the first image, samples/s of the
+    rest, counts).'''
+    _zero_counts()
+    worker.init()
+    t0 = time.perf_counter()
+    load()
+    worker.render()
+    first = worker.get_image()
+    t_first = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for _ in range(spp - 1):
+        worker.render()
+    img = worker.get_image()
+    sps = (spp - 1) / (time.perf_counter() - t1)
+    grew = _counts()
+    _need(what, grew, want)
+    if img.shape != (RES, RES, 4) or not np.isfinite(img).all() \
+            or not np.isfinite(first).all():
+        raise AssertionError(f'{what}: image not finite / wrong shape')
+    return img, t_first, sps, grew
+
+
+def _same_image(what, got, ref):
+    if not np.array_equal(got, ref):
+        d = np.abs(got - ref)
+        raise AssertionError(f'{what}: images differ on {int((d > 0).sum())} '
+                             f'values, max {d.max():.3e}')
+
+
+def _front_gltf_monkey(card, tmp):
+    '''(a): the monkey asset as .gltf (data URI) and .glb, each through
+    readgltf and the worker at 512^2 x 32, against the worker fed
+    compose_multiple_meshes of the same primitives.'''
+    meshes, nodes, gl, mats = monkey_asset()
+    paths = {m: os.path.join(tmp, f'monkey.{m}') for m in ('gltf', 'glb')}
+    for mode, path in paths.items():
+        write_gltf(path, meshes, nodes, gl, mode=mode)
+    want = _expect(path=FRONT_SPP)
+    out, read_s = {}, {}
+    for mode, path in paths.items():
+        def load(path=path, mode=mode):
+            t0 = time.perf_counter()
+            v, m, got_mats, images = readgltf(path)
+            read_s[mode] = time.perf_counter() - t0
+            if got_mats != mats or images:
+                raise AssertionError(f'readgltf {mode}: materials / images')
+            load_worker(worker, v, m, got_mats)
+        out[mode] = _front_render(f'gltf monkey {mode}', load, FRONT_SPP, want)
+        if mode == 'gltf':
+            scene = worker._S.scene
+    verts, mtlids = compose_multiple_meshes(composed_inputs(meshes, nodes))
+    out['direct'] = _front_render(
+        'gltf monkey direct',
+        lambda: load_worker(worker, verts, mtlids, mats), FRONT_SPP, want)
+    _same_image('gltf vs glb', out['gltf'][0], out['glb'][0])
+    _same_image('gltf vs composed', out['gltf'][0], out['direct'][0])
+    pt = sobol_block(0, DIMS)
+    err = _hold('gltf monkey', 'primary s0',
+                _stack(fused.fused_trace_primary(scene, pt, RES, RES)),
+                _stack(fused.fused_trace_primary_plain(scene, pt, RES, RES)),
+                False)
+    nf = int(scene.nfaces)
+    print(f'[frontends] {card} | (a) glTF cornell_monkey ({nf} faces, 5 '
+          f'primitives, TRS / matrix nodes, uint16 / uint32 indices, one '
+          f'byteStride view): readgltf .gltf {read_s["gltf"] * 1e3:.1f} ms, '
+          f'.glb {read_s["glb"] * 1e3:.1f} ms; load -> first image '
+          f'{out["gltf"][1]:.3f} s (.gltf) / {out["glb"][1]:.3f} s (.glb) / '
+          f'{out["direct"][1]:.3f} s (composed arrays); {RES}x{RES} x '
+          f'{FRONT_SPP} spp, {out["gltf"][2]:.1f} samples/s after the first; '
+          f'.gltf = .glb = composed bit for bit, launches '
+          f'{out["gltf"][3]} each')
+    return dict(launches=out['gltf'][3], max_abs_err=err,
+                readgltf_s=read_s, first_image_s=out['gltf'][1])
+
+
+def _front_gltf_matball(card, tmp):
+    '''(b): matball with its ramp an embedded PNG (metallicRoughness
+    texture): the ramp decodes as encoded, the render takes path_kernel
+    with a texture atlas, held against its twin.'''
+    ramp, png = ramp_png()
+    if not np.array_equal(png_codec.decode(png),
+                          np.ascontiguousarray(ramp.swapaxes(0, 1))):
+        raise AssertionError('_png: the ramp does not decode as encoded')
+    meshes, nodes, gl, mats, images = matball_asset(png)
+    path = os.path.join(tmp, 'matball.glb')
+    write_gltf(path, meshes, nodes, gl, images, mode='glb')
+    t0 = time.perf_counter()
+    v, m, got_mats, imgs = readgltf(path)
+    read_s = time.perf_counter() - t0
+    if got_mats != mats or len(imgs) != 1 or not np.array_equal(imgs[0], ramp):
+        raise AssertionError('readgltf matball: materials / ramp')
+    img, t_first, sps, grew = _front_render(
+        'gltf matball', lambda: load_worker(worker, v, m, got_mats, imgs),
+        FRONT_SPP, _expect(path=FRONT_SPP))
+    scene = worker._S.scene
+    if scene.textures.data.shape[0] != 1 or not scene.materials.textured:
+        raise AssertionError('gltf matball: no texture atlas in the scene')
+    pt = sobol_block(0, DIMS)
+    err = _hold('gltf matball', 'primary s0',
+                _stack(fused.fused_trace_primary(scene, pt, RES, RES)),
+                _stack(fused.fused_trace_primary_plain(scene, pt, RES, RES)),
+                True)
+    print(f'[frontends] {card} | (b) glTF matball ({int(scene.nfaces)} '
+          f'faces, the 64x64 ramp a {len(png)}-byte PNG, bound as '
+          f'metallicRoughness): readgltf {read_s * 1e3:.1f} ms, load -> '
+          f'first image {t_first:.3f} s, {sps:.1f} samples/s, mean '
+          f'{img[..., :3].mean():.5f}, launches {grew}')
+    return dict(launches=grew, max_abs_err=err)
+
+
+def _front_glb_highpoly(card, tmp):
+    '''(c): cornell_highpoly as a GLB through the worker: the blocked
+    route (5 x 8 launches of each blocked cast), equal to the worker fed
+    the composed arrays bit for bit.'''
+    meshes, nodes, gl, mats = highpoly_asset()
+    path = os.path.join(tmp, 'highpoly.glb')
+    write_gltf(path, meshes, nodes, gl, mode='glb')
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    v, m, got_mats, _ = readgltf(path)
+    read_s = time.perf_counter() - t0
+    n = DEPTH * HIGHPOLY_SPP
+    want = _expect(blocked_shade=n, blocked_any=n)
+    build = {}
+
+    def load():
+        build['s'] = load_worker(worker, v, m, got_mats)
+    img, t_first, sps, grew = _front_render('glb highpoly', load,
+                                            HIGHPOLY_SPP, want)
+    make_s = build['s']
+    verts, mtlids = compose_multiple_meshes(composed_inputs(meshes, nodes))
+    ref = _front_render('glb highpoly direct',
+                        lambda: load_worker(worker, verts, mtlids, mats),
+                        HIGHPOLY_SPP, want)[0]
+    _same_image('glb highpoly vs composed', img, ref)
+    print(f'[frontends] {card} | (c) GLB cornell_highpoly '
+          f'({len(v) // 3} faces, {mb:.2f} MB): readgltf {read_s:.3f} s, '
+          f'make_scene {make_s:.3f} s, load -> first image {t_first:.3f} s, '
+          f'{RES}x{RES} x {HIGHPOLY_SPP} spp at {sps:.2f} samples/s after '
+          f'the first; = composed bit for bit, launches {grew}')
+    return dict(launches=grew, readgltf_s=read_s, make_scene_s=make_s,
+                sps=sps)
+
+
+def _front_ply_obj(card, tmp):
+    '''(d): readply of binary and ASCII PLYs of cornell_highpoly; writeobj
+    of cornell_monkey, then worker.load_model(path) with obj_mtlids.'''
+    parts = _blob_parts(320, 160)
+    corners = np.concatenate([v[:, :3] for v, _ in parts])
+    v, faces = np.unique(corners, axis=0, return_inverse=True)
+    faces = faces.reshape(-1, 3).astype(np.int32)
+    secs = {}
+    for binary in (True, False):
+        kind = 'binary' if binary else 'ascii'
+        path = os.path.join(tmp, f'highpoly_{kind}.ply')
+        write_ply(path, v, faces, binary)
+        t0 = time.perf_counter()
+        obj = readply(path)
+        secs[kind] = time.perf_counter() - t0
+        if not (np.array_equal(obj['v'], v)
+                and np.array_equal(obj['f'][:, :, 0], faces)):
+            raise AssertionError(f'readply {kind}: arrays differ')
+    (sv, sm), (bv, bm), (xv, xm) = _blob_parts()
+    verts = np.concatenate([sv, bv, xv])
+    mtlids = np.concatenate([sm, bm, xm])
+    path = os.path.join(tmp, 'monkey.obj')
+    obj = obj_of_vertices(verts, mtlids)
+    t0 = time.perf_counter()
+    writeobj(path, obj)  # v, vt, vn and f: the ids go beside the file
+    secs['writeobj'] = time.perf_counter() - t0
+    ids = obj_mtlids(obj, {f'm{i}': i for i in range(4)})
+    t0 = time.perf_counter()
+    worker.init()
+    worker.load_model(path, ids)
+    secs['readobj'] = time.perf_counter() - t0
+    if not (np.array_equal(worker._S.vertices, verts)
+            and np.array_equal(worker._S.mtlids, mtlids)):
+        raise AssertionError('writeobj -> load_model: arrays differ')
+    _, grew = _launched(lambda: (worker.build_tree(), worker.render()))
+    _need('obj monkey render', grew, _expect(path=1))
+    print(f'[frontends] {card} | (d) readply cornell_highpoly ({len(v)} '
+          f'vertices, {len(faces)} faces): binary {secs["binary"]:.3f} s, '
+          f'ASCII {secs["ascii"]:.3f} s, arrays exact; writeobj '
+          f'cornell_monkey {secs["writeobj"]:.3f} s, load_model(path) '
+          f'(readobj) {secs["readobj"]:.3f} s with obj_mtlids\' ids, '
+          f'vertices and ids exact, one render: {grew}')
+    return dict(secs=secs, launches=grew)
+
+
+def _ceiling_lamp():
+    '''The benchmark's ceiling light as a Blender AREA lamp: (world,
+    color, energy in watts, size).  light_to_pool_entry takes half the
+    size and gives L = P / (4 pi s^2), the benchmark's radiance.'''
+    light = _ceiling_light()
+    world = np.eye(4)
+    world[:3, :3], world[:3, 3] = light['axes'], light['pos']
+    half = light['size']
+    return world, (1.0, 1.0, 1.0), \
+        light['color'][0] * 4.0 * np.pi * half ** 2, 2.0 * half
+
+
+# the Principled socket values of the Blender scene's two materials
+BLENDER_MATERIALS = {
+    name: dict(zip(PRINCIPLED_SOCKETS, ((*base, 1.0), 0.0, rough, 0.5, 0.4,
+                                        0.0, 0.0, 0.4, 0.0, 0.5, 0.0, 1.45)))
+    for name, (base, rough) in (('white', _CORNELL_MATERIALS_SPEC[0]),
+                                ('glossy', _CORNELL_MATERIALS_SPEC[3]))}
+
+
+def blender_objects(nu=59, nv=9):
+    '''The Blender checks' two mesh objects, each (name, [F*3, 8]
+    vertices in its own frame, world, material name): the room (the
+    cornell shell and the box, identity world) and the blob (a smooth
+    sphere of 2 * nu * (nv - 1) triangles, its world a translation).'''
+    (sv, _), (bv, _), (xv, _) = _blob_parts(nu, nv)
+    world = gl_matrix.translate((0.0, 1.3, 0.2))
+    blob = bv.copy()
+    blob[:, :3] -= np.float32([0.0, 1.3, 0.2])
+    return [('Room', np.concatenate([sv, xv]), np.eye(4), 'white'),
+            ('Blob', blob, world, 'glossy')]
+
+
+def blender_scene(nu=59, nv=9):
+    '''sync_worker's arguments for the Blender checks' scene, through the
+    engine's helpers: the two materials (principled_to_material), no
+    image, the two objects, a background (world_background) and the
+    ceiling lamp (light_to_pool_entry).'''
+    names = list(BLENDER_MATERIALS)
+    meshes = [(v[:, 0:3].reshape(-1, 3, 3), v[:, 3:6].reshape(-1, 3, 3),
+               v[:, 6:8].reshape(-1, 3, 2), world, names.index(m))
+              for _, v, world, m in blender_objects(nu, nv)]
+    world, color, energy, size = _ceiling_lamp()
+    return ([principled_to_material(BLENDER_MATERIALS[n]) for n in names],
+            [], meshes, world_background((0.05, 0.05, 0.05, 1.0), 1.0),
+            [light_to_pool_entry(world, color, energy, 'AREA', size / 2)])
+
+
+def final_render(w, sync, res=RES, spp=FRONT_SPP):
+    '''The engine's final render on worker `w` (the module or a
+    DaemonModule over it): init, sync_worker, res^2, the camera, spp x
+    render() with render_preview() after the first, then every
+    RENDER_PASSES image.  Returns (passes, samples/s).'''
+    w.init()
+    sync_worker(w, *sync)
+    w.set_size(res, res)
+    w.set_camera(BENCH_CAMERA)
+    w.synchronize()
+    t0 = time.perf_counter()
+    for s in range(spp):
+        w.render()
+        if s == 0:
+            w.render_preview()
+    w.synchronize()
+    sps = spp / (time.perf_counter() - t0)
+    return [w.get_image(pid) for pid in range(len(RENDER_PASSES))], sps
+
+
+def _front_blender(card):
+    '''(e): the Blender engine's calls without bpy, through
+    DaemonModule(worker): the sync, the final render (against the same
+    calls on this thread), and the viewport ladder.'''
+    sync = blender_scene()
+    daemon = DaemonModule(worker)
+    try:
+        (passes, sps_d), grew = _launched(lambda: final_render(daemon, sync))
+        _need('blender final render (daemon)', grew,
+              _expect(path=FRONT_SPP, shade=1))
+        direct, sps = final_render(worker, sync)
+        _same_image('blender Combined: daemon vs this thread', passes[0],
+                    direct[0])
+        for (name, _, _), img in zip(RENDER_PASSES, passes):
+            if img.shape != (RES, RES, 4) or not np.isfinite(img).all():
+                raise AssertionError(f'blender {name} pass not finite')
+        # an error on the daemon thread reaches the caller
+        daemon.set_engine('no_such_engine')
+        try:
+            daemon.render()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError('blender: a daemon-thread error was lost')
+        daemon.set_engine('path')
+        refiner = ViewportRefiner(start_pixel_size=8, max_samples=FRONT_SPP)
+        rungs, act = [], {'redraw': True}
+        _zero_counts()
+        while act['redraw']:
+            act = refiner.next_action((RES, RES), BENCH_CAMERA.tobytes())
+            t0 = time.perf_counter()
+            (w, h), buf = viewport_pass(daemon, act, BENCH_CAMERA)
+            rungs.append(((w, h), (time.perf_counter() - t0) * 1e3))
+            if (w, h) != (act['width'], act['height']) \
+                    or not np.isfinite(buf).all() or not buf.any():
+                raise AssertionError(f'blender viewport rung {len(rungs)}: '
+                                     f'{(w, h)} for {act}')
+        torch.cuda.synchronize()
+        vp = _counts()
+        _need('blender viewport', vp, _expect(path=len(rungs)))
+    finally:
+        daemon.stop()
+    full = [ms for (wh, ms) in rungs if wh == (RES, RES)]
+    print(f'[frontends] {card} | (e) Blender engine calls through '
+          f'DaemonModule(worker), two objects, {RES}x{RES}: final render '
+          f'{FRONT_SPP} spp + 1 preview, {grew}, {sps_d:.1f} samples/s on '
+          f'the daemon thread vs {sps:.1f} on this one, Combined equal bit '
+          f'for bit, {len(RENDER_PASSES)} passes finite, a daemon error '
+          f'raised here; viewport {len(rungs)} rungs, {vp}: first frame '
+          f'{rungs[0][1]:.2f} ms at {rungs[0][0]}, then '
+          + ', '.join(f'{ms:.2f} ms at {wh}' for wh, ms in rungs[1:4])
+          + f', {RES}^2 rungs median {statistics.median(full):.2f} ms')
+    return dict(launches_final=grew, launches_viewport=vp, sps_daemon=sps_d,
+                sps_direct=sps, first_frame_ms=rungs[0][1],
+                rung_ms=[ms for _, ms in rungs])
+
+
+def _front_examples(card, tmp, monkey):
+    '''(f): the six examples as subprocesses at their defaults (the smoke
+    render at 512^2 x 32 on monkey), all at once: exit 0, the smoke
+    render's printed mean that of the same render here, the PNGs.'''
+    env = dict(os.environ, TMPDIR=tmp)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, '-m', f'ptina_tpu_torch.examples.{name}',
+         *(SMOKE_ARGS if name == 'smoke_render' else ())],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in EXAMPLES}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=EXAMPLE_TIMEOUT)
+            outs[name] = out
+            if p.returncode != 0:
+                raise AssertionError(f'example {name}: exit {p.returncode}\n'
+                                     f'{out[-2000:]}\n{err[-4000:]}')
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    img = film_to_image(render(monkey, new_film(RES, RES, device=DEV), 0,
+                               spp=SPP)).cpu().numpy()
+    want = img[..., :3].mean()
+    got = re.search(r' mean (\S+) ', outs['smoke_render']).group(1)
+    if np.float32(got) != want:
+        raise AssertionError(f'smoke_render printed mean {got}, here {want}')
+    pngs = sorted(n for n in os.listdir(tmp) if n.endswith('.png'))
+    need = {f'smoke_monkey_{RES}.png', 'coverage_cornell.png', 'matball.png',
+            'metropolis_cornell.png', 'refine_f2_final.png'}
+    if not need <= set(pngs):
+        raise AssertionError(f'examples: PNGs {pngs}')
+    for n in pngs:
+        with open(os.path.join(tmp, n), 'rb') as f:
+            if png_codec.decode(f.read()).ndim != 3:
+                raise AssertionError(f'examples: {n}')
+    print(f'[frontends] {card} | (f) examples {", ".join(EXAMPLES)}: six '
+          f'processes at once, all exit 0 in {wall:.1f} s; smoke_render '
+          f'{" ".join(SMOKE_ARGS)} printed mean {got} = this process\'s; '
+          f'{len(pngs)} PNGs written and decoded')
+    for name in EXAMPLES:
+        last = [ln for ln in outs[name].splitlines() if ln.strip()][-1]
+        print(f'[frontends] example {name}: {last[:160]}')
+    return wall
+
+
+def phase_frontends(card, scenes):
+    '''Phase 11 (module docstring): the scene front-ends through the
+    worker, each item with every count at 0 just before it and read just
+    after.'''
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    set_verbosity(0)  # the worker's scene-build lines, one a viewport rung
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as tmp:
+        out = {'gltf': _front_gltf_monkey(card, tmp),
+               'textured': _front_gltf_matball(card, tmp),
+               'glb_blocked': _front_glb_highpoly(card, tmp),
+               'ply_obj': _front_ply_obj(card, tmp),
+               'blender': _front_blender(card)}
+        ex = os.path.join(tmp, 'examples')
+        os.makedirs(ex)
+        out['examples_s'] = _front_examples(card, ex,
+                                            scenes['cornell_monkey'])
+    set_verbosity(1)
+    print(f'[frontends] phase took {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main():
     card = phase_device()
     ptxas = phase_build()
@@ -2407,6 +3164,7 @@ def main():
     eng = phase_engines(card, scenes, highpoly)
     grad = phase_grad(card, scenes, highpoly)
     scale = phase_scale(card, scenes, highpoly)
+    front = phase_frontends(card, scenes)
 
     # launches per sample of each kernel's route: the dense tree casts on
     # the wavefront (fused=False) scenes, the megakernel on the five, the
@@ -2446,11 +3204,22 @@ def main():
                 'grad_sharded': scale['grad']['launches'].get(k, 0),
                 'lbvh_oracle': scale['lbvh']['closest'] * (k == 'closest')}
 
+    def front_launches(k):
+        '''Each phase-11 item's launches of kernel k.'''
+        b = front['blender']
+        return {'gltf_monkey': front['gltf']['launches'][k],
+                'gltf_matball': front['textured']['launches'][k],
+                'glb_highpoly': front['glb_blocked']['launches'][k],
+                'obj_monkey': front['ply_obj']['launches'][k],
+                'blender_final': b['launches_final'][k],
+                'blender_viewport': b['launches_viewport'][k]}
+
     def entry(k, source, launches, ms, plain_ms, call_ms, bound, **extra):
         return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
                 'replaces': REPLACES[k], 'launches': launches,
                 'launches_per_sample': per_sample[k],
-                'launches_scale': scale_launches(k), **errs[k], 'ms': ms,
+                'launches_scale': scale_launches(k),
+                'launches_frontends': front_launches(k), **errs[k], 'ms': ms,
                 'plain_ms': plain_ms, 'bound_ms': bound[0],
                 'bound_by': bound[1], 'library_ms': None, 'call_ms': call_ms,
                 'ptxas': ptxas.get(f'{k}_kernel', ''), **extra}
@@ -2488,7 +3257,9 @@ def main():
         mlt_step_wall_ms=m['step_wall_ms'],
         max_abs_err_worker=eng['worker_err'],
         launches_grad_pair=grad['pair']['path'],
-        launches_grad_wavefront=grad['wavefront']['path']))
+        launches_grad_wavefront=grad['wavefront']['path'],
+        max_abs_err_gltf=front['gltf']['max_abs_err'],
+        max_abs_err_gltf_textured=front['textured']['max_abs_err']))
     kernels += [cast_entry(
         k, KERNEL_SOURCE, counts['table'][k], 'cornell',
         ms_monkey=kt['cornell_monkey'][k][0],

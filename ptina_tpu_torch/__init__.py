@@ -13,7 +13,7 @@ and never ptina_tpu, which would drag JAX in.  Importing it needs neither
 nvcc nor a GPU: a kernel library is built and loaded only when a wrapper
 first receives a CUDA tensor.
 
-Ported so far: the path integrator over the scene build (the five
+Every module of the reference is ported: the path integrator over the scene build (the five
 megakernel-eligible benchmark scenes: cornell_box, cornell_monkey,
 textured cornell, envlight_scene, matball; and the big scene
 cornell_highpoly, Morton-ordered in 512-face blocks), Sobol sampling,
@@ -42,7 +42,12 @@ scenes from the megakernel (engine/fused.fused_trace_diff); tiled renders
 over a mesh of devices, the data-parallel gradient step and the
 torch.distributed runtime with its two-process launcher (parallel/); the
 daemon thread and the orbit camera (utils/daemon.py, utils/control.py);
-and the BVH oracles (intersect/lbvh.py, intersect/middlebvh.py).
+the BVH oracles (intersect/lbvh.py, intersect/middlebvh.py); and the
+scene front-ends feeding the worker: glTF / GLB (io/readgltf.py, its
+PNGs through the stdlib codec io/_png.py), OBJ and PLY (io/readobj.py),
+per-object transforms (io/multimesh.py), the Blender render engine
+(blender.py) and the examples (examples/, python -m
+ptina_tpu_torch.examples.<name>).
 '''
 
 __version__ = '0.1.0'

@@ -4,15 +4,17 @@ Wavefront OBJ reader (host side, numpy only).
 Reference: ptina_tpu/io/readobj.py (reference ptina/tools/readobj.py),
 copied: readobj returns a dict with vertex arrays and an [F, 3, 3] face
 index array (v, vt, vn per corner), triangulating polygons as fans, with
-helpers to generate flat normals when missing and to flatten the dict
-into make_scene's [F * 3, 8] vertices (worker.load_model).  The
-reference's writeobj, obj_mtlids and PLY reader have no caller in the
-port and are not copied.
+helpers to map usemtl ranges to per-face material ids, to generate flat
+normals when missing and to flatten the dict into make_scene's
+[F * 3, 8] vertices (worker.load_model); writeobj writes the dict back
+out, and readply reads ASCII and binary little-endian PLY files into the
+same dict, element by element in Python as the reference does.
 '''
 
 import numpy as np
 
-__all__ = ['readobj', 'obj_flat_normals', 'obj_to_vertices']
+__all__ = ['readobj', 'writeobj', 'readply', 'obj_mtlids',
+           'obj_flat_normals', 'obj_to_vertices']
 
 
 def readobj(path, orient='xyz', scale=None):
@@ -89,6 +91,31 @@ def readobj(path, orient='xyz', scale=None):
                 usemtl=usemtl, mtllib=mtllib)
 
 
+def writeobj(path, obj):
+    '''Write the dict format back out (reference: readobj.py writeobj).'''
+    with open(path, 'w') as fp:
+        for x in obj['v']:
+            print('v', *x, file=fp)
+        for x in obj['vt']:
+            print('vt', *x, file=fp)
+        for x in obj['vn']:
+            print('vn', *x, file=fp)
+        for face in obj['f']:
+            corners = ['/'.join(str(i + 1) for i in c) for c in face]
+            print('f', *corners, file=fp)
+
+
+def obj_mtlids(obj, name_to_id):
+    '''Per-face material ids from usemtl ranges
+    (reference: readobj.py:155-170).  Unknown names map to -1.'''
+    nfaces = obj['f'].shape[0]
+    mtlids = -np.ones(nfaces, np.int32)
+    spans = obj['usemtl'] + [(nfaces, None)]
+    for (start, name), (end, _) in zip(spans[:-1], spans[1:]):
+        mtlids[start:end] = name_to_id.get(name, -1)
+    return mtlids
+
+
 def obj_flat_normals(obj):
     '''Fill vn with per-face flat normals when the OBJ has none
     (reference: readobj.py:212-222 objmknorm).'''
@@ -116,3 +143,72 @@ def obj_to_vertices(obj):
     coors = obj['vt'][f[:, :, 1]].reshape(-1, 2)
     norms = obj['vn'][f[:, :, 2]].reshape(-1, 3)
     return np.concatenate([verts, norms, coors], axis=1).astype(np.float32)
+
+
+def readply(path):
+    """Minimal ASCII/binary-LE PLY reader (reference: readobj.py:225-233
+    reads vertex/face elements).  Returns the same dict format as
+    readobj (positions + faces, flat normals generated on demand)."""
+    with open(path, 'rb') as fp:
+        assert fp.readline().strip() == b'ply'
+        fmt = fp.readline().split()[1]
+        counts = []   # (element name, count, [(type, name), ...])
+        props = None
+        for line in iter(fp.readline, b''):
+            tok = line.split()
+            if tok[0] == b'comment':
+                continue
+            if tok[0] == b'element':
+                props = []
+                counts.append((tok[1].decode(), int(tok[2]), props))
+            elif tok[0] == b'property':
+                props.append((b' '.join(tok[1:-1]).decode(), tok[-1].decode()))
+            elif tok[0] == b'end_header':
+                break
+        verts, faces = [], []
+        if fmt == b'ascii':
+            for name, cnt, pr in counts:
+                for _ in range(cnt):
+                    vals = fp.readline().split()
+                    if name == 'vertex':
+                        verts.append([float(x) for x in vals[:3]])
+                    elif name == 'face':
+                        idx = [int(x) for x in vals[1:1 + int(vals[0])]]
+                        for k in range(1, len(idx) - 1):  # fan-triangulate
+                            faces.append([idx[0], idx[k], idx[k + 1]])
+        else:
+            assert fmt == b'binary_little_endian', f'unsupported {fmt}'
+            _sz = {'char': 1, 'uchar': 1, 'int8': 1, 'uint8': 1,
+                   'short': 2, 'ushort': 2, 'int16': 2, 'uint16': 2,
+                   'int': 4, 'uint': 4, 'int32': 4, 'uint32': 4,
+                   'float': 4, 'float32': 4, 'double': 8, 'float64': 8}
+            import struct
+            _fc = {1: 'b', 2: 'h', 4: 'i', 8: 'q'}
+            for name, cnt, pr in counts:
+                for _ in range(cnt):
+                    if name == 'vertex':
+                        row = []
+                        for typ, _pn in pr:
+                            sz = _sz[typ]
+                            raw = fp.read(sz)
+                            if typ in ('float', 'float32'):
+                                row.append(struct.unpack('<f', raw)[0])
+                            elif typ in ('double', 'float64'):
+                                row.append(struct.unpack('<d', raw)[0])
+                            else:
+                                row.append(int.from_bytes(raw, 'little', signed=not typ.startswith('u')))
+                        verts.append(row[:3])
+                    elif name == 'face':
+                        typ = pr[0][0].split()
+                        cnt_t, idx_t = typ[1], typ[2]
+                        n = int.from_bytes(fp.read(_sz[cnt_t]), 'little')
+                        idx = [int.from_bytes(fp.read(_sz[idx_t]), 'little')
+                               for _ in range(n)]
+                        for k in range(1, len(idx) - 1):
+                            faces.append([idx[0], idx[k], idx[k + 1]])
+    v = np.asarray(verts, np.float32).reshape(-1, 3)
+    f3 = np.zeros((len(faces), 3, 3), np.int32)
+    f3[:, :, 0] = np.asarray(faces, np.int32)
+    return dict(v=v, vt=np.zeros((1, 2), np.float32),
+                vn=np.zeros((1, 3), np.float32), f=f3,
+                usemtl=[], mtllib=None)

@@ -3,17 +3,20 @@ Microfacet helpers, elementwise over [N] rows.
 
 Reference: ptina_tpu/materials/microfacet.py (reference
 ptina/materials/microfacet.py).  Every division is guarded so masked-out
-lanes stay finite.  The visible-normal sampler (disabled in the
-reference's Disney) is not ported.
+lanes stay finite.  The visible-normal sampler sample_gtr2_vnor works on
+[..., 3] vectors, as the reference's does; like the reference's Disney,
+the port's does not call it.
 '''
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import PI, clamp, clamp_min, safe_sqrt
+from ptina_tpu_torch.utils.mathutils import (PI, clamp, clamp_min, cross,
+                                             normalize, safe_sqrt)
 from ptina_tpu_torch.utils.vec import vspherical
 
 __all__ = ['schlick_fresnel', 'dielectric_fresnel', 'gtr1', 'gtr2',
-           'smith_ggx', 'sample_gtr1', 'sample_gtr2', 'pow5']
+           'smith_ggx', 'sample_gtr1', 'sample_gtr2', 'sample_gtr2_vnor',
+           'pow5']
 
 
 def pow5(x):
@@ -78,3 +81,30 @@ def sample_gtr2(u, v, alpha):
     h = safe_sqrt((1.0 - u)
                   / clamp_min(1.0 - u * (1.0 - alpha * alpha), 1e-12))
     return vspherical(h, v)
+
+
+def sample_gtr2_vnor(ve, u, v, alpha):
+    '''Visible-normal GGX sampling (present but disabled in the reference,
+    microfacet.py:81-100 / disney.py:162).  ve: [..., 3] view direction in
+    the local frame; u, v, alpha: [...].  Returns the [..., 3] normal.'''
+    vh = normalize(torch.stack([alpha * ve[..., 0], alpha * ve[..., 1],
+                                ve[..., 2]], dim=-1))
+    lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
+    safe = lensq > 1e-12
+    inv = 1.0 / torch.sqrt(torch.where(safe, lensq, 1.0))
+    t1 = torch.where(safe[..., None],
+                     torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
+                                  torch.zeros_like(inv)], dim=-1),
+                     torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype,
+                                  device=vh.device))
+    t2 = cross(vh, t1)
+    r = safe_sqrt(u)
+    phi = 2.0 * PI * v
+    p1 = r * torch.cos(phi)
+    p2r = r * torch.sin(phi)
+    s = 0.5 * (1.0 + vh[..., 2])
+    p2 = (1.0 - s) * safe_sqrt(1.0 - p1 * p1) + s * p2r
+    nh = (p1[..., None] * t1 + p2[..., None] * t2
+          + safe_sqrt(1.0 - p1 * p1 - p2 * p2)[..., None] * vh)
+    return normalize(torch.stack([alpha * nh[..., 0], alpha * nh[..., 1],
+                                  clamp_min(nh[..., 2], 0.0)], dim=-1))

@@ -3,8 +3,9 @@ Integer hashes for pixel decorrelation, and the counter-hashed uniforms
 of the MLT proposal streams (hash_uniform).
 
 Reference: ptina_tpu/sampling/__init__.py (wanghash family; reference
-ptina/sampling/__init__.py:8-31).  uniform_grid (jax.random) is not
-ported: its callers draw with torch.rand and an explicit generator.
+ptina/sampling/__init__.py:8-31).  uniform_grid draws with torch.rand
+from an explicit torch.Generator where the reference takes a JAX key
+(threefry is not reimplemented), as engine/mlt.mlt_init does.
 
 torch has no usable uint32 arithmetic (no wrapping multiply, and `>>` on
 int32 is arithmetic), so the hashes compute in int64 and mask every
@@ -16,7 +17,7 @@ shift.  Inputs and outputs are int64 tensors holding u32 values.
 import torch
 
 __all__ = ['wanghash', 'wanghash2', 'wanghash3', 'hash_uniform',
-           'u32_to_unit']
+           'u32_to_unit', 'uniform_grid']
 
 _M32 = 0xFFFFFFFF
 
@@ -60,3 +61,10 @@ def u32_to_unit(h):
     '''u32 hash -> float32 in [0, 1] exactly as the reference converts
     (round-to-nearest u32 -> f32, times 2^-32).'''
     return h.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def uniform_grid(generator, shape, device='cuda'):
+    '''Plain pseudo-random float32 uniforms in [0, 1) of `shape` (reference
+    RandomSampler, ptina/sampling/random.py): torch.rand from `generator`, a
+    torch.Generator on `device` (None: torch's default generator there).'''
+    return torch.rand(shape, generator=generator, device=device)

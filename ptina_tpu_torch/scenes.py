@@ -2,8 +2,9 @@
 Procedural benchmark scenes.
 
 Reference: ptina_tpu/scenes.py (numpy geometry builders copied, so the
-port needs no JAX).  Ported: cornell_box (34 triangles), cornell_monkey
-(978 triangles: a 944-triangle smooth UV sphere stands in for Suzanne),
+port needs no JAX).  Ported: cornell_box (34 triangles; its arrays in
+worker-API form from cornell_box_vertices), cornell_monkey
+(966 triangles: a 944-triangle smooth UV sphere stands in for Suzanne),
 envlight_scene and matball (2,216 triangles each: a ground quad and a
 2,214-triangle sphere), and cornell_highpoly (101,782 triangles at its
 defaults: the big scene of the blocked route).  The fixed benchmark
@@ -14,8 +15,8 @@ import numpy as np
 
 from ptina_tpu_torch.scene import make_scene, LIGHT_AREA, LIGHT_POINT
 
-__all__ = ['BENCH_CAMERA', 'cornell_box', 'cornell_monkey',
-           'cornell_highpoly', 'envlight_scene', 'matball']
+__all__ = ['BENCH_CAMERA', 'cornell_box', 'cornell_box_vertices',
+           'cornell_monkey', 'cornell_highpoly', 'envlight_scene', 'matball']
 
 BENCH_CAMERA = np.array([
     [1.73205081e+00, 0.00000000e+00, 0.00000000e+00, 1.01348227e-02],
@@ -133,14 +134,24 @@ def _cornell_boxes():
     return tall, short
 
 
-def cornell_box(textured_image=None, device='cuda', **kw):
-    '''Cornell two-boxes, 34 triangles.  textured_image: optional numpy
-    image bound as material 0's basecolor texture, with planar wall UVs.'''
+def cornell_box_vertices():
+    '''The cornell-two-boxes geometry in worker-API form: (vertices
+    [F*3, 8], mtlids [F], materials list), for worker.load_model /
+    load_materials.'''
     shell, mtl = _cornell_shell()
     tall, short = _cornell_boxes()
     mtlids = np.asarray(mtl + [0] * 12 + [0] * 12, np.int32)
-    mats = _materials()
+    return (_mesh_to_vertices(np.concatenate([shell, tall, short])), mtlids,
+            _materials())
+
+
+def cornell_box(textured_image=None, device='cuda', **kw):
+    '''Cornell two-boxes, 34 triangles.  textured_image: optional numpy
+    image bound as material 0's basecolor texture, with planar wall UVs.'''
+    verts, mtlids, mats = cornell_box_vertices()
     if textured_image is not None:
+        shell, _ = _cornell_shell()
+        tall, short = _cornell_boxes()
         kw.setdefault('images', [textured_image])
         mats[0][0] = (mats[0][0][0], 0)  # basecolor fac * texture 0
         verts = np.concatenate([
@@ -148,8 +159,6 @@ def cornell_box(textured_image=None, device='cuda', **kw):
             _mesh_to_vertices(tall),
             _mesh_to_vertices(short),
         ])
-    else:
-        verts = _mesh_to_vertices(np.concatenate([shell, tall, short]))
     kw.setdefault('cam_pers', BENCH_CAMERA)
     kw.setdefault('lights', [_ceiling_light()])
     kw.setdefault('world_fac', (0.05, 0.05, 0.05, 1.0))
@@ -185,24 +194,35 @@ def _sphere_smooth_normals(tris, center):
     return n
 
 
-def cornell_monkey(device='cuda', **kw):
-    '''Cornell + a 944-triangle smooth blob + a box = 978 triangles.'''
+def _blob_parts(nu=59, nv=9):
+    '''cornell_monkey's geometry (cornell_highpoly's with a finer sphere)
+    as three parts, each (vertices [F*3, 8], mtlids [F]): the cornell
+    shell, a smooth UV sphere of 2 * nu * (nv - 1) triangles, a box.'''
     shell, mtl = _cornell_shell()
-    blob = _uv_sphere((0.0, 1.3, 0.2), 1.0)
+    blob = _uv_sphere((0.0, 1.3, 0.2), 1.0, nu=nu, nv=nv)
     tall = _box_tris((-1.2, 0.45, -0.9), (0.45, 0.45, 0.45),
                      yaw=np.radians(20))
-    verts = np.concatenate([
-        _mesh_to_vertices(shell),
-        _mesh_to_vertices(blob, normals=_sphere_smooth_normals(
-            blob, (0.0, 1.3, 0.2))),
-        _mesh_to_vertices(tall),
-    ])
-    mtlids = np.asarray(mtl + [3] * blob.shape[0] + [0] * 12, np.int32)
+    return [
+        (_mesh_to_vertices(shell), np.asarray(mtl, np.int32)),
+        (_mesh_to_vertices(blob, normals=_sphere_smooth_normals(
+            blob, (0.0, 1.3, 0.2))), np.full(blob.shape[0], 3, np.int32)),
+        (_mesh_to_vertices(tall), np.zeros(12, np.int32)),
+    ]
+
+
+def _blob_scene(parts, device, kw):
+    verts = np.concatenate([v for v, _ in parts])
+    mtlids = np.concatenate([m for _, m in parts])
     kw.setdefault('cam_pers', BENCH_CAMERA)
     kw.setdefault('lights', [_ceiling_light()])
     kw.setdefault('world_fac', (0.05, 0.05, 0.05, 1.0))
     return make_scene(verts, mtlids, materials=_materials(), device=device,
                       **kw)
+
+
+def cornell_monkey(device='cuda', **kw):
+    '''Cornell + a 944-triangle smooth blob + a box = 966 triangles.'''
+    return _blob_scene(_blob_parts(), device, kw)
 
 
 def cornell_highpoly(nu=320, nv=160, device='cuda', **kw):
@@ -210,22 +230,7 @@ def cornell_highpoly(nu=320, nv=160, device='cuda', **kw):
     (101,782 triangles at the defaults): the big scene.  Above
     MAX_DENSE_FACES it takes the blocked two-level cast, with
     Morton-ordered face blocks (101,888 padded faces in 199 blocks).'''
-    shell, mtl = _cornell_shell()
-    blob = _uv_sphere((0.0, 1.3, 0.2), 1.0, nu=nu, nv=nv)
-    tall = _box_tris((-1.2, 0.45, -0.9), (0.45, 0.45, 0.45),
-                     yaw=np.radians(20))
-    verts = np.concatenate([
-        _mesh_to_vertices(shell),
-        _mesh_to_vertices(blob, normals=_sphere_smooth_normals(
-            blob, (0.0, 1.3, 0.2))),
-        _mesh_to_vertices(tall),
-    ])
-    mtlids = np.asarray(mtl + [3] * blob.shape[0] + [0] * 12, np.int32)
-    kw.setdefault('cam_pers', BENCH_CAMERA)
-    kw.setdefault('lights', [_ceiling_light()])
-    kw.setdefault('world_fac', (0.05, 0.05, 0.05, 1.0))
-    return make_scene(verts, mtlids, materials=_materials(), device=device,
-                      **kw)
+    return _blob_scene(_blob_parts(nu, nv), device, kw)
 
 
 def envlight_scene(env_res=(64, 128), device='cuda', **kw):

@@ -1,10 +1,12 @@
 '''
 Math commons for the path tracer.
 
-Reference: ptina_tpu/utils/mathutils.py.  Only the scalar-row helpers the
-engines use are ported (normaldist: the MLT mutation); the [..., 3] array
-helpers of the reference serve its non-SoA code, and the SoA vector
-algebra lives in utils/vec.py.
+Reference: ptina_tpu/utils/mathutils.py.  The engines use the scalar-row
+helpers (clamp, lerp, safe_sqrt; normaldist: the MLT mutation) and the
+SoA vector algebra of utils/vec.py; the reference's [..., 3] helpers
+(dot, cross, normalize, frames, spherical maps, reflect / refract) are
+here too, on tensors with a trailing component axis, for callers that
+hold vectors that way.
 
 clamp and clamp_min are the shading path's jnp.clip and jnp.maximum
 against a constant, written as torch.maximum / torch.minimum against a
@@ -24,8 +26,13 @@ INF = 1e6
 PI = math.pi
 TAU = 2.0 * math.pi
 
-__all__ = ['EPS', 'INF', 'PI', 'TAU', 'clamp', 'clamp_min', 'lerp',
-           'safe_sqrt', 'normaldist']
+__all__ = [
+    'EPS', 'INF', 'PI', 'TAU',
+    'clamp', 'clamp_min', 'lerp', 'unlerp', 'smoothstep',
+    'dot', 'dot_or_zero', 'norm', 'normalize', 'cross', 'vavg',
+    'tanframe', 'tanspace', 'spherical', 'unspherical', 'dir2tex',
+    'reflect', 'refract', 'normaldist', 'safe_div', 'safe_sqrt',
+]
 
 
 def safe_sqrt(x):
@@ -49,6 +56,106 @@ def lerp(fac, src, dst):
     '''src*(1-fac) + dst*fac (reference: ptina/common.py:269-271).'''
     return src * (1.0 - fac) + dst * fac
 
+
+
+def unlerp(val, src, dst):
+    return (val - src) / (dst - src)
+
+
+def smoothstep(x, a=0.0, b=1.0):
+    t = clamp((x - a) / (b - a))
+    return t * t * (3.0 - 2.0 * t)
+
+
+def dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def dot_or_zero(a, b):
+    '''max(0, a.b) (reference: ptina/common.py:178-180).'''
+    return clamp_min(dot(a, b), 0.0)
+
+
+def norm(v):
+    return safe_sqrt(torch.sum(v * v, dim=-1))
+
+
+def normalize(v, eps=1e-12):
+    return v / clamp_min(norm(v), eps)[..., None]
+
+
+def cross(a, b):
+    '''[..., 3] cross product, broadcast over the batch axes.'''
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def vavg(v):
+    '''Component mean of a vector (reference Vavg, ptina/common.py:73-77).'''
+    return torch.mean(v, dim=-1)
+
+
+def safe_div(a, b, eps=1e-12):
+    '''a/b with sign-preserving clamped denominator (never nan/inf).'''
+    mag = clamp_min(torch.abs(b), eps)
+    return a / torch.where(b < 0, -mag, mag)
+
+
+def tanframe(nrm, up=(233.0, 666.0, 512.0)):
+    '''Tangent frame (tan, bitan) for a [..., 3] normal
+    (reference: ptina/common.py:213-217), as two [..., 3] vectors.'''
+    up = torch.as_tensor(up, dtype=nrm.dtype, device=nrm.device)
+    bitan = normalize(cross(nrm, up.expand(nrm.shape)))
+    tan = cross(bitan, nrm)
+    return tan, bitan
+
+
+def tanspace(nrm, up=(233.0, 666.0, 512.0)):
+    '''Tangent frame columns [tan, bitan, nrm] as an [..., 3, 3] matrix.'''
+    tan, bitan = tanframe(nrm, up)
+    return torch.stack([tan, bitan, nrm], dim=-1)
+
+
+def spherical(h, p):
+    '''Direction from cos-elevation h and turn fraction p
+    (reference: ptina/common.py:221-225).  h, p: [...] -> [..., 3].'''
+    r = safe_sqrt(1.0 - h * h)
+    ang = p * TAU
+    return torch.stack([r * torch.cos(ang), r * torch.sin(ang), h], dim=-1)
+
+
+def unspherical(d):
+    '''Inverse of spherical (reference: ptina/common.py:228-231).'''
+    p = torch.atan2(d[..., 1], d[..., 0]) / TAU
+    return d[..., 2], torch.remainder(p, 1.0)
+
+
+def dir2tex(d):
+    '''Equirectangular mapping direction -> (s, t) in [0,1]
+    (reference: ptina/common.py:234-239).'''
+    d = normalize(d)
+    s = torch.atan2(d[..., 2], d[..., 0]) / PI * 0.5 + 0.5
+    t = torch.atan2(d[..., 1], norm(d[..., [0, 2]])) / PI + 0.5
+    return s, t
+
+
+def reflect(i, n):
+    '''Mirror i around n (reference: ptina/common.py:247-249).'''
+    return i - 2.0 * dot(n, i)[..., None] * n
+
+
+def refract(i, n, eta):
+    '''Snell refraction of incident i at normal n with ratio eta.
+    Returns (has_refract [...], direction [..., 3])
+    (reference: ptina/common.py:252-260).'''
+    noi = dot(n, i)
+    eta = torch.as_tensor(eta, dtype=i.dtype, device=i.device) \
+        .expand(noi.shape)
+    discr = 1.0 - eta * eta * (1.0 - noi * noi)
+    has = discr > 0.0
+    t = eta[..., None] * i - n * (eta * noi + safe_sqrt(discr))[..., None]
+    t = normalize(t)
+    return has, torch.where(has[..., None], t, torch.zeros_like(t))
 
 _SQRT2 = float(np.sqrt(np.float32(2.0)))
 # Giles (2010), "Approximating the erfinv function": the single-precision

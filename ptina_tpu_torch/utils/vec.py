@@ -16,7 +16,7 @@ import torch
 
 from ptina_tpu_torch.utils.mathutils import TAU, clamp_min, safe_sqrt
 
-__all__ = ['V3', 'vdot', 'vdot_or_zero', 'vnorm', 'vnormalize', 'vcross',
+__all__ = ['V3', 'v3', 'vdot', 'vdot_or_zero', 'vnorm', 'vnormalize', 'vcross',
            'vlerp', 'vwhere', 'vavg3', 'vreflect', 'vrefract', 'vtanframe',
            'vspherical', 'vdir2tex']
 
@@ -63,6 +63,11 @@ class V3:
         vx, vy, vz = vals
         return cls(torch.full_like(ref.x, vx), torch.full_like(ref.y, vy),
                    torch.full_like(ref.z, vz))
+
+
+def v3(x, y, z):
+    '''A V3 from three tensors or numbers.'''
+    return V3(torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(z))
 
 
 def vdot(a: V3, b: V3):

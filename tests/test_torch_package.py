@@ -1,8 +1,11 @@
 '''
 Hygiene of the PyTorch port package (ptina_tpu_torch): it never imports
 JAX or the JAX package, it imports on a machine with neither nvcc nor a
-GPU (its kernel library is built only on first use on the card), and its
-entry points default to the card with no CPU fallback.
+GPU (its kernel library is built only on first use on the card), nor
+Blender's bpy, nor PIL; its entry points default to the card with no CPU
+fallback; and every public name of the reference's modules has its
+counterpart in the port's mirror of that module, but the TPU-only names
+ROADMAP.md lists under "Do not port".
 '''
 
 import ast
@@ -59,13 +62,20 @@ def test_imports_without_jax_nvcc_or_gpu():
         'import ptina_tpu_torch.worker, ptina_tpu_torch.engine\n'
         'import ptina_tpu_torch.checkpoint, ptina_tpu_torch.tone\n'
         'import ptina_tpu_torch.utils.trace, ptina_tpu_torch.io.readobj\n'
-        'import ptina_tpu_torch.diff\n'
+        'import ptina_tpu_torch.diff, ptina_tpu_torch.blender\n'
+        'import ptina_tpu_torch.io.readgltf, ptina_tpu_torch.io.multimesh\n'
+        'import ptina_tpu_torch.examples.smoke_render\n'
+        'import ptina_tpu_torch.examples.coverage\n'
+        'import ptina_tpu_torch.examples.matball\n'
+        'import ptina_tpu_torch.examples.metropolis\n'
+        'import ptina_tpu_torch.examples.objloader\n'
+        'import ptina_tpu_torch.examples.interactive\n'
         'from ptina_tpu_torch.intersect import blocked, dense_cast\n'
         'from ptina_tpu_torch.engine import fused\n'
         'for m in (dense_cast, fused, blocked):\n'
         '    assert m.build_library.cache_info().currsize == 0\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '
-        '("jax", "flax", "ptina_tpu")]\n'
+        '("jax", "flax", "ptina_tpu", "bpy", "gpu", "PIL")]\n'
         'assert not bad, bad\n')
     env = dict(os.environ, PATH='/usr/bin:/bin', CUDA_VISIBLE_DEVICES='')
     env.pop('CUDA_HOME', None)
@@ -84,7 +94,10 @@ CARD_DEFAULT = [
     ('scene', 'make_textures'), ('scene', 'make_lights'),
     ('film', 'new_film'), ('engine.path', 'pixel_grid'),
     ('engine.mlt', 'mlt_init'), ('worker', 'init'),
-    ('checkpoint', 'mlt_state_from_numpy')]
+    ('checkpoint', 'mlt_state_from_numpy'), ('sampling', 'uniform_grid'),
+    ('examples.smoke_render', 'main'), ('examples.coverage', 'main'),
+    ('examples.matball', 'main'), ('examples.metropolis', 'main'),
+    ('examples.objloader', 'main'), ('examples.interactive', 'main')]
 
 
 @pytest.mark.parametrize('module,name', CARD_DEFAULT,
@@ -129,3 +142,65 @@ def test_card_default_has_no_cpu_fallback():
         cornell_box()
     with pytest.raises((RuntimeError, AssertionError)):
         mlt_init(4)
+
+
+# ROADMAP.md's "Do not port": the reference's TPU-only public names (the
+# Pallas casts, whose port is intersect/dense_cast.py; the MXU chunking of
+# the hit contract; the blocked cast's VMEM / SMEM tiling; the
+# megakernel's VMEM caps, tile rows, one-hot switch, interpret plumbing
+# and its explicit-ray head)
+DO_NOT_PORT = {
+    'intersect/pallas_cast.py': None,
+    'intersect/plucker.py': {
+        'FACE_CHUNK', 'cast_closest_chunks', 'cast_keys_chunks',
+        'cast_mint_chunks', 'chunk_uvwta', 'chunk_uvwta_T', 'chunk_valid',
+        'extract_winner', 'finish_extraction', 'pack_extract',
+        'pack_plucker', 'recip'},
+    'intersect/blocked.py': {
+        'BLOCKED_TR', 'CAND_BITS', 'CAND_MASK', 'EXIT_ROUND',
+        'MAX_BLOCKED_VMEM_FACES', 'SMEM_CAND_BUDGET', 'T5_ROWS',
+        'TILES_PER_CALL', 'blocked_cast_closest', 'blocked_tables'},
+    'engine/fused.py': {
+        'MAX_FUSED_TEX_BINDINGS', 'MAX_FUSED_TEX_BYTES',
+        'ONEHOT_FETCH_MIN_MATERIALS', 'RG', 'fused_trace',
+        'fused_trace_diff_interp'},
+}
+
+
+def _public_names(path, imported=True):
+    '''Top-level public names a module defines or assigns, and those it
+    imports if `imported`.'''
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif imported and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split('.')[0]
+                       for a in node.names)
+    return {n for n in out if not n.startswith('_')}
+
+
+def _reference_modules():
+    ref = os.path.join(ROOT, 'ptina_tpu')
+    for dirpath, _, names in os.walk(ref):
+        for n in sorted(names):
+            if n.endswith('.py'):
+                yield os.path.relpath(os.path.join(dirpath, n), ref)
+
+
+@pytest.mark.parametrize('rel', sorted(_reference_modules()))
+def test_every_reference_module_is_ported(rel):
+    '''The port's file of the same path has (defines or imports) every
+    name the reference's defines, but the TPU-only ones.'''
+    skip = DO_NOT_PORT.get(rel, set())
+    if skip is None:
+        return
+    port = os.path.join(PKG, rel)
+    assert os.path.exists(port), f'ptina_tpu_torch/{rel} is missing'
+    ref = _public_names(os.path.join(ROOT, 'ptina_tpu', rel), imported=False)
+    missing = sorted(ref - skip - _public_names(port))
+    assert not missing, f'ptina_tpu_torch/{rel} lacks {missing}'
