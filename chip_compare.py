@@ -23,13 +23,21 @@ worker measures, on the card:
     in every tree, whatever its kernels take) at 262,144 seeded random
     rays from inside the cornell box, on the five scenes and chip_smoke's
     random 2,504-face table, the same way;
+  * closest_kernel / any_flat_kernel: device ms per call of the
+    table-level dense_cast.cast_closest / cast_any_flat (each tree's
+    default) on the same rays and the same six face tables;
   * blocked_shade_kernel / blocked_any_kernel: device ms per call at
     262,144 seeded random rays from inside cornell_highpoly's box, the
     same way.
 
 It saves the radiance and the cast results, and the parent process
 holds this tree's against the other's: the share of paths (rays) whose
-outputs are equal bit for bit.  Prints the card's name and power limit
+outputs are equal bit for bit.  A turn that builds its tree's kernels
+returns nvcc's log and its libraries' paths; the parent prints, for both
+trees, ptxas's registers, stack and spills of each kernel and, where
+cuobjdump is there, the instructions of one face's common path through
+closest_kernel's face loop ([sass]; ptina_tpu_torch.utils.kernel_report of
+this tree reads both).  Prints the card's name and power limit
 and, as its last line, one JSON object: per kernel and scene each
 turn's ms, the median per tree, and this / other.  Uses only entry points
 both trees have.  Exits non-zero without a GPU.
@@ -93,9 +101,7 @@ def worker(tree, out_path):
             'envlight': lambda: scenes.envlight_scene(device='cuda'),
             'matball': lambda: scenes.matball(roughness_tex=ramp,
                                               device='cuda')}
-    fused.build_library()
-    blocked.build_library()
-    dense_cast.build_library()
+    libs = [m.build_library() for m in (fused, blocked, dense_cast)]
     pt = sobol_block(SAMPLE, DIMS)
 
     def t(a, dt=torch.float32):
@@ -148,6 +154,16 @@ def worker(tree, out_path):
             torch, lambda: dispatch.cast_shaded(scene, ro, rd, avoid))
         ms[f'any_kernel/{name}'] = _queued_ms(
             torch, lambda: dispatch.cast_shadow(scene, ro, rd, avoid, tmax))
+        c = scene.face_coef
+        hit = dense_cast.cast_closest(ro, rd, avoid, c)
+        occ = dense_cast.cast_any_flat(ro, rd, avoid, tmax, c)
+        saved[f'closest/{name}'] = torch.stack(
+            [hit.index.float(), hit.t, hit.u, hit.v]).cpu().numpy()
+        saved[f'any_flat/{name}'] = occ[None].cpu().numpy()
+        ms[f'closest_kernel/{name}'] = _queued_ms(
+            torch, lambda: dense_cast.cast_closest(ro, rd, avoid, c))
+        ms[f'any_flat_kernel/{name}'] = _queued_ms(
+            torch, lambda: dense_cast.cast_any_flat(ro, rd, avoid, tmax, c))
     hp = scenes.cornell_highpoly(device='cuda')
     ro, rd, avoid, tmax = rays(7, hp.face_coef.shape[0])
     tables = (hp.face_coef, hp.face_attr, hp.block_bounds, hp.node_bounds)
@@ -164,7 +180,33 @@ def worker(tree, out_path):
         torch, lambda: blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb,
                                                 nb))
     np.savez(out_path, **saved)
-    print(json.dumps(ms))
+    print(json.dumps({'ms': ms, 'log': '\n'.join(log for _, log in libs),
+                      'dense_cast_lib': libs[2][0]._name}))
+
+
+def _print_build(side, got, printed):
+    '''The ptxas lines of a turn that built its tree, and the [sass] line
+    of its tree's closest_kernel once a tree.'''
+    # imported here, not at the top: a worker imports ptina_tpu_torch from
+    # its own tree
+    from ptina_tpu_torch.utils.kernel_report import (face_loop_path,
+                                                     ptxas_by_kernel, sass)
+    for kern, info in ptxas_by_kernel(got['log']).items():
+        print(f'[compare] ptxas {side} {kern}: {info}')
+    if side in printed:
+        return
+    printed.add(side)
+    path = face_loop_path(sass(got['dense_cast_lib'], 'closest_kernel'))
+    if path is None:
+        print(f'[sass] {side} closest_kernel face loop: not read (no '
+              f'cuobjdump or no unrolled loop)')
+        return
+    n, counts = path
+    fp = counts.get('FMUL', 0) + counts.get('FADD', 0)
+    print(f'[sass] {side} closest_kernel: one face\'s common path is {n:g} '
+          f'instructions, {fp:g} of them FP32: '
+          + ', '.join(f'{v:g} {k}' for k, v in
+                      sorted(counts.items(), key=lambda kv: -kv[1])))
 
 
 def _card():
@@ -193,6 +235,7 @@ def main():
     turns = [('other', other), ('this', here), ('this', here),
              ('other', other)] * rounds
     ms = {'this': [], 'other': []}
+    printed = set()
     with tempfile.TemporaryDirectory() as tmp:
         for k, (side, tree) in enumerate(turns):
             out = os.path.join(tmp, f'{side}_{k}.npz')
@@ -204,7 +247,9 @@ def main():
             if proc.returncode:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
                 raise SystemExit(f'the {side} turn {k} failed')
-            ms[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            ms[side].append(got['ms'])
+            _print_build(side, got, printed)
             print(f'[compare] turn {k} {side} ({time.perf_counter() - t0:.1f}'
                   f' s): {ms[side][-1]}')
         a = np.load(os.path.join(tmp, 'this_1.npz'))

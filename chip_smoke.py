@@ -21,7 +21,9 @@ without the final line):
   2. build    — compile the three kernel libraries (csrc/dense_cast.cu,
                 csrc/fused_path.cu and csrc/blocked_cast.cu) for sm_90a,
                 three nvcc processes at once; print each kernel's ptxas
-                registers, spills, stack and shared memory.
+                registers, spills, stack and shared memory, and, where
+                cuobjdump is there, the instructions of one face's common
+                path in closest_kernel's loop ([sass]).
   3. kernels  — each dense CUDA cast (the tree shade and any, the flat
                 closest and any_flat) against its plain torch version on
                 the card: the five benchmark scenes (cornell and textured
@@ -33,11 +35,18 @@ without the final line):
                 casts against theirs on cornell_highpoly (101,888 faces in
                 199 blocks) at the same counts, and on its own 512x512
                 camera rays (the first bounce of the main path).  The
+                flat casts (closest_kernel, any_flat_kernel) bit for bit
+                against their plain versions on the six tables at both
+                counts.  The
                 megakernel against its plain twin (path_trace on the same
                 uniforms) at 512x512, samples 0 and 7 at depth 5 and
                 sample 0 at depth 8, on the five scenes, its
-                explicit-uniform head on cornell and matball, and two half
-                frames (x0 = 0, 256) against the full frame, bit for bit.
+                explicit-uniform head on cornell and matball, two half
+                frames (x0 = 0, 256) against the full frame, bit for bit,
+                and its explicit-ray head (fused_trace) on the five
+                scenes against its twin at the primary head's gate and
+                bit for bit against fused_trace_primary fed the same
+                camera rays and wanghash2(i, j).
   4. main     — each route with every launch count set to 0 just before
                 it and read just after: the five scenes at 512x512, 32 spp
                 through ptina_tpu_torch.engine.path.render (the automatic
@@ -49,7 +58,11 @@ without the final line):
                 automatic route takes the blocked wavefront): 5 x 8
                 launches of each blocked cast and nothing else; the
                 table-level cast_closest / cast_any on cornell_monkey's
-                faces: one launch of each flat kernel.
+                faces: one launch of each flat kernel; fused_trace on the
+                five scenes' camera rays: one path launch each and nothing
+                else; blocked_cast_closest on cornell_highpoly's camera
+                rays: one blocked_shade launch, its Hit equal to
+                blocked_cast_shade's bit for bit.
   5. capacity — cornell_highpoly(nu=640, nv=240) (305,942 faces, 598
                 blocks): the 32-ray float64 oracle of bench.py:183-214
                 (>= 31 of 32 agree, t within 2e-3 relative), and a
@@ -63,12 +76,20 @@ without the final line):
                 call (CUDA events around calls queued behind a spinning
                 stream), and the per-call time a caller waits (CUDA-event
                 median, launch overhead included): the dense casts at
-                262,144 random rays on the six tables, the blocked casts
-                on cornell_highpoly.  Each kernel's bound: the least time
-                the card could take for its work on those inputs, the
-                larger of its FP32 operations (36 a ray-face pair) over
-                67 TFLOP/s and its bytes over 3.35 TB/s; the pairs are F
-                x rays for the flat casts, and for every tree kernel the
+                262,144 random rays on the six tables (the flat ones
+                beside their no-contraction ceiling: their needed FP32
+                operations as instructions at 33.5e12 a second), the
+                blocked casts on cornell_highpoly, and the explicit-ray
+                head beside the primary head at 512^2.  Each kernel's
+                bound: the least time the card could take for its work on
+                those inputs, the larger of its FP32 operations over 67
+                TFLOP/s and its bytes over 3.35 TB/s.  A flat cast needs
+                the sign test's 29 operations on each pair and 7 more on
+                each pair that passes it (counted with the plain version
+                on the timed rays): the closest cast every ray against
+                every face, the occlusion cast a ray's faces up to its
+                first occluder.  A tree kernel's pairs (36 operations
+                each) are the
                 live faces of the leaves of its box tree a ray must enter
                 (blocked.leaf_pairs): on the timed rays, and for the
                 megakernel and the dense tree casts on the rays of each
@@ -235,6 +256,8 @@ from ptina_tpu_torch.film import (new_film, film_to_image, film_splat,
                                   PASS_ALBEDO, PASS_NORMAL)
 from ptina_tpu_torch.intersect import blocked, brute, dense_cast, dispatch
 from ptina_tpu_torch.intersect.lbvh import lbvh_build, lbvh_traverse
+from ptina_tpu_torch.intersect.plucker import (face_chunk, pair_hits,
+                                            pair_side, ray_features)
 from ptina_tpu_torch.io import _png as png_codec, matrix as gl_matrix
 from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.io.multimesh import compose_multiple_meshes
@@ -243,6 +266,7 @@ from ptina_tpu_torch.io.readobj import obj_mtlids, readply, writeobj
 from ptina_tpu_torch.parallel import (make_mesh, render_sharded,
                                       train_step_sharded)
 from ptina_tpu_torch.parallel.distributed import _collectives_raise
+from ptina_tpu_torch.sampling import wanghash2
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
 from ptina_tpu_torch.scene import (make_scene, compute_node_bounds,
@@ -255,6 +279,9 @@ from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     _quad, _uv_sphere, _sphere_smooth_normals,
                                     _sphere_uvs, _CORNELL_MATERIALS_SPEC)
 from ptina_tpu_torch.utils.daemon import DaemonModule
+from ptina_tpu_torch.utils.mathutils import INF
+from ptina_tpu_torch.utils.kernel_report import (ptxas_by_kernel, sass,
+                                                 face_loop_path)
 from ptina_tpu_torch.utils.trace import set_verbosity
 from ptina_tpu_torch.utils.vec import V3
 
@@ -305,6 +332,16 @@ PEAK_BYTES = 3.35e12
 # V 6 products + 5 sums each, B 3 + 2, An 3 + 3, W 2, An * B 1; the
 # reciprocal and product of t only for valid pairs, not counted
 FLOPS_PER_PAIR = 36
+# of those, the sign test's (face_side: U, V, B, W), which every pair
+# needs; An and An * B (face_t) only a pair that passes it needs
+FLOPS_SIDE = 29
+FLOPS_T = FLOPS_PER_PAIR - FLOPS_SIDE
+# the card's FP32 instruction rate: 67 TFLOP/s counts a fused multiply-add
+# as two operations; the kernels are built without contraction
+# (--fmad=false), so each operation is one instruction, and the flat
+# casts' needed operations over this rate are their no-contraction
+# ceiling
+PEAK_FP32_INSTR = PEAK_FLOPS / 2
 KERNEL_SOURCE = 'ptina_tpu_torch/csrc/dense_cast.cu'
 PATH_SOURCE = 'ptina_tpu_torch/csrc/fused_path.cu'
 BLOCKED_SOURCE = 'ptina_tpu_torch/csrc/blocked_cast.cu'
@@ -315,13 +352,6 @@ REPLACES = {'shade': 'ptina_tpu/intersect/pallas_cast.py:69',
             'path': 'ptina_tpu/engine/fused.py:648',
             'blocked_shade': 'ptina_tpu/intersect/blocked.py:388',
             'blocked_any': 'ptina_tpu/intersect/blocked.py:462'}
-# kernel names as nvcc's log gives them, the longer first ('shade_kernel'
-# is inside 'blocked_shade_kernel')
-KERNEL_NAMES = ('blocked_shade_kernel', 'blocked_any_kernel',
-                'closest_kernel', 'any_flat_kernel', 'shade_kernel',
-                'any_kernel', 'path_kernel')
-
-
 def _bench_texture():
     '''The reference benchmark's 64x64 grey ramp (bench.py:149-151).'''
     return (np.linspace(0, 1, 64 * 64, dtype=np.float32)
@@ -374,26 +404,6 @@ def phase_device():
     return card
 
 
-def _ptxas(log):
-    '''{kernel: ptxas resource line} from an nvcc -Xptxas -v log; the two
-    instantiations of a tree kernel (path_kernel, shade_kernel and
-    any_kernel <kBoxes>: the tree walk with box tests, and the one for
-    tables of at most two leaves) share its line, each named.'''
-    out, name = {}, None
-    for line in log.splitlines():
-        if 'entry function' in line:
-            name = next((k for k in KERNEL_NAMES if k in line), None)
-            if name and ('ILb1E' in line or 'ILb0E' in line):
-                out[name] = out.get(name, '') + ('; ' if name in out else '') \
-                    + ('boxes: ' if 'ILb1E' in line else 'two leaves: ')
-            elif name:
-                out[name] = ''
-        elif name and ('stack frame' in line or 'registers' in line):
-            sep = '; ' if out[name] and not out[name].endswith(': ') else ''
-            out[name] += sep + line.split(':')[-1].strip()
-    return out
-
-
 def phase_build():
     '''The three libraries, one nvcc each, started together.'''
     t0 = time.perf_counter()
@@ -408,7 +418,7 @@ def phase_build():
     for log in logs:
         if 'error' in log:
             print(f'[build] {log}')
-        res.update(_ptxas(log))
+        res.update(ptxas_by_kernel(log))
     for name, info in res.items():
         print(f'[build] ptxas {name}: {info}')
         m = re.search(r'(\d+) bytes spill stores', info)
@@ -416,6 +426,26 @@ def phase_build():
             print(f'[build] NOTE {name} spills {m.group(1)} bytes to local '
                   f'memory')
     return res
+
+
+def _print_face_path(card):
+    '''The [sass] line of closest_kernel's face loop
+    (kernel_report.face_loop_path); returns its instructions a face (None
+    where not read).'''
+    lib = dense_cast.build_library()[0]
+    got = face_loop_path(sass(lib._name, 'closest_kernel'))
+    if got is None:
+        print('[sass] closest_kernel face loop: not read (no cuobjdump or '
+              'no unrolled loop)')
+        return None
+    n, counts = got
+    fp = counts.get('FMUL', 0) + counts.get('FADD', 0)
+    print(f'[sass] {card} | closest_kernel, 2 rays a thread: one face\'s '
+          f'common path is {n:g} instructions ({n / 2:g} a pair), {fp:g} of '
+          f'them FP32: ' + ', '.join(f'{v:g} {k}' for k, v in
+                                     sorted(counts.items(),
+                                            key=lambda kv: -kv[1])))
+    return n
 
 
 # ---------------------------------------------------------------- phase 3
@@ -530,8 +560,25 @@ def _compare(name, scene, ro, rd, avoid, tmax, flat=True):
         closest = (dense_cast.cast_closest(ro, rd, avoid, c),
                    dense_cast.cast_closest_plain(ro, rd, avoid, c))
         any_flat = dense_cast.cast_any_flat(ro, rd, avoid, tmax, c)
+        _hold_flat_bits(name, ro, rd, avoid, tmax, c, closest[1], occ[1])
     torch.cuda.synchronize()
     return _hold_casts(name, ro.x.shape[0], shade, occ, closest, any_flat)
+
+
+def _hold_flat_bits(name, ro, rd, avoid, tmax, c, hp, op):
+    '''The flat kernels against their plain versions' Hit hp and
+    occlusion op: equal bit for bit, or raise.'''
+    hk = dense_cast.cast_closest(ro, rd, avoid, c)
+    ok = dense_cast.cast_any_flat(ro, rd, avoid, tmax, c)
+    torch.cuda.synchronize()
+    same = [k for k in ('hit', 'index', 't', 'u', 'v')
+            if torch.equal(getattr(hk, k), getattr(hp, k))]
+    print(f'[kernels] {name:<16} N={ro.x.shape[0]:>7} closest_kernel / '
+          f'any_flat_kernel: bit for bit with the plain versions: Hit '
+          f'fields {same}, occlusion {torch.equal(ok, op)}')
+    if len(same) != 5 or not torch.equal(ok, op):
+        raise AssertionError(f'{name}: a flat kernel differs from its plain '
+                             f'version')
 
 
 def _lanes(scene, dims=DIMS):
@@ -641,9 +688,10 @@ def _hold(name, what, k, p, relative):
 
 
 def phase_megakernel(scenes):
-    '''The megakernel against its plain twin on every scene: both heads,
-    and the half-frame composition.'''
-    err = 0.0
+    '''The megakernel against its plain twin on every scene: its three
+    heads, and the half-frame composition.  Returns the max abs errors
+    (primary and explicit-uniform heads, explicit-ray head).'''
+    err = rays_err = 0.0
     print(f'[kernels] path_kernel tolerances: >= {PATH_AGREE:.0%} of paths '
           f'within 1e-3 abs and means within 2e-3 (cornell, '
           f'cornell_monkey), or within 2e-2 of max(|ref|, 0.05) and means '
@@ -680,7 +728,43 @@ def phase_megakernel(scenes):
             k = _stack(fused.fused_trace_uniforms(scene, ro, rd, u))
             p = _stack(fused.fused_trace_uniforms_plain(scene, ro, rd, u))
             err = max(err, _hold(name, 'uniforms', k, p, relative))
+        rays_err = max(rays_err, _hold_rays_head(name, scene, relative))
     torch.cuda.synchronize()
+    return err, rays_err
+
+
+def _primary_inputs(scene, sample, res=RES, dims=DIMS):
+    '''The explicit-ray head's inputs that match fused_trace_primary's
+    sample: (ro, rd, Sobol point, base), the camera rays with the lens
+    jitter of rows 0-1 and base = wanghash2(i, j), as the primary head
+    makes them in the kernel (the NDC division by a power-of-two res is
+    exact in either form).'''
+    pt = sobol_block(sample, dims)
+    ii, jj = pixel_grid(res, res, device=DEV)
+    u = torch.remainder(pt.to(DEV)[:, None] + pixel_rotation(ii, jj, dims),
+                        1.0)
+    x = (ii.to(torch.float32) + u[0]) / res * 2.0 - 1.0
+    y = (jj.to(torch.float32) + u[1]) / res * 2.0 - 1.0
+    ro, rd = camera_rays(scene.cam_v2w, x, y)
+    return ro, rd, pt, wanghash2(ii, jj).to(torch.int32)
+
+
+def _hold_rays_head(name, scene, relative):
+    '''fused_trace (the explicit-ray head) at 512^2 against its plain twin
+    at the primary head's gate, and bit for bit against
+    fused_trace_primary on matched inputs.  Returns the max abs error
+    against the twin.'''
+    ro, rd, pt, base = _primary_inputs(scene, 0)
+    k = _stack(fused.fused_trace(scene, ro, rd, pt, base))
+    prim = _stack(fused.fused_trace_primary(scene, pt, RES, RES))
+    p = _stack(fused.fused_trace_plain(scene, ro, rd, pt, base))
+    err = _hold(name, 'rays head', k, p, relative)
+    same = torch.equal(k, prim)
+    print(f'[kernels] path_kernel {name:<16} rays head == primary head on '
+          f'its camera rays and wanghash2(i, j), bit for bit: {same}')
+    if not same:
+        raise AssertionError(f'{name}: the explicit-ray head differs from '
+                             f'the primary head on matched inputs')
     return err
 
 
@@ -804,7 +888,56 @@ def phase_main(scenes, highpoly):
         raise AssertionError(f'table-level casts: hit share {share}, '
                              f'launches {grew}')
     out['table'] = grew
+    out['rays_head'] = _drive_rays_head(scenes)
+    out['blocked_closest'] = _drive_blocked_closest(highpoly)
     return out
+
+
+def _drive_rays_head(scenes):
+    '''fused_trace, the explicit-ray head, once on each scene's 512^2
+    camera rays of sample 1: one path launch a call and nothing else.'''
+    inputs = {name: _primary_inputs(scene, 1)
+              for name, scene in scenes.items()}
+    _zero_counts()
+    rads = {name: fused.fused_trace(scenes[name], *args)
+            for name, args in inputs.items()}
+    torch.cuda.synchronize()
+    grew = _counts()
+    means = {name: round(_stack(r).mean().item(), 6)
+             for name, r in rads.items()}
+    ok = all(bool(torch.isfinite(_stack(r)).all()) for r in rads.values())
+    print(f'[main] explicit-ray head fused_trace, {RES}x{RES} camera rays '
+          f'and wanghash2(i, j), sample 1: mean radiance {means}, launches '
+          f'{grew}')
+    if not ok or grew != _expect(path=len(scenes)):
+        raise AssertionError(f'fused_trace: finite {ok}, launches {grew}')
+    return grew
+
+
+def _drive_blocked_closest(highpoly):
+    '''blocked_cast_closest on cornell_highpoly's 512^2 camera rays: one
+    blocked_shade launch and nothing else, and the shade pass's hit bit
+    for bit.'''
+    ro, rd, avoid = _camera_batch(highpoly, RES)
+    tables = (highpoly.face_coef, highpoly.face_attr, highpoly.block_bounds,
+              highpoly.node_bounds)
+    _zero_counts()
+    hit = blocked.blocked_cast_closest(ro, rd, avoid, *tables)
+    torch.cuda.synchronize()
+    grew = _counts()
+    ref, _ = blocked.blocked_cast_shade(ro, rd, avoid, *tables)
+    torch.cuda.synchronize()
+    same = [k for k in ('hit', 'index', 't', 'u', 'v')
+            if torch.equal(getattr(hit, k), getattr(ref, k))]
+    share = hit.hit.float().mean().item()
+    print(f'[main] blocked_cast_closest, cornell_highpoly, {RES}x{RES} '
+          f'camera rays: hit {share:.4f}, launches {grew}; equal to '
+          f'blocked_cast_shade\'s hit bit for bit in {same}')
+    if len(same) != 5 or share < 0.9 \
+            or grew != _expect(blocked_shade=1):
+        raise AssertionError(f'blocked_cast_closest: fields equal {same}, '
+                             f'hit {share}, launches {grew}')
+    return grew
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1079,22 +1212,66 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _flat_bounds(scene, rays):
-    """{flat dense kernel: (bound ms, bound_by)} at these rays: every ray
-    against every live face, each input read once, each output written
-    once.  Also the tree casts' all-faces bounds, kept for the record:
-    {'shade': ms, 'any': ms}."""
+def _flat_pairs(scene, rays):
+    """The pair work the flat casts need on these rays, counted with the
+    plain version's arithmetic (plucker.pair_side, pair_hits): {kernel:
+    (pairs, of them passing the sign test)}.  The closest cast needs every
+    ray against every live face; the occlusion cast a ray's faces in table
+    order up to its first occluder (a face other than avoid hit at t <
+    min(tmax, INF)), every face where it has none, and none where tmax <=
+    0 (t > 0 on every valid pair)."""
     ro, rd, avoid, tmax = rays
     n, nf = ro.x.shape[0], int(scene.nfaces)
-    flops = FLOPS_PER_PAIR * n * nf
+    coef = scene.face_coef[:nf]
+    p = ray_features(ro, rd)
+    fc = face_chunk(n, nf)
+    first = torch.full((n,), nf, dtype=torch.int64, device=DEV)
+    passing = 0
+    for base in range(0, nf, fc):
+        c = coef[base:base + fc]
+        passing += int((pair_side(p, rd, c)[0] >= 0).sum())
+        valid, ts, _ = pair_hits(p, ro, rd, c, base, avoid)
+        occ = valid & (ts < INF) & (ts < tmax[:, None])
+        at = base + occ.int().argmax(1).long()
+        first = torch.where(occ.any(1) & (at < first), at, first)
+    need = torch.where(tmax > 0, torch.clamp(first + 1, max=nf), 0)
+    any_passing = 0
+    for base in range(0, nf, fc):
+        c = coef[base:base + fc]
+        fids = base + torch.arange(c.shape[0], device=DEV)
+        any_passing += int(((pair_side(p, rd, c)[0] >= 0)
+                            & (fids[None, :] < need[:, None])).sum())
+    return {'closest': (n * nf, passing),
+            'any_flat': (int(need.sum()), any_passing)}
+
+
+def _flat_bounds(scene, rays):
+    """{flat dense kernel: (bound ms, bound_by), 'ceiling': {flat dense
+    kernel: ms}, 'pairs': _flat_pairs} at these rays: the needed pairs'
+    FP32 operations (FLOPS_SIDE each, FLOPS_T more for each that passes
+    the sign test), each input read once, each output written once; the
+    ceiling is the same operations as instructions at PEAK_FP32_INSTR.
+    Also the tree casts' all-faces bounds, kept for the record (36
+    operations a pair): {'shade': ms, 'any': ms}."""
+    ro, rd, avoid, tmax = rays
+    n, nf = ro.x.shape[0], int(scene.nfaces)
+    pairs = _flat_pairs(scene, rays)
+    ops = {k: FLOPS_SIDE * total + FLOPS_T * passing
+           for k, (total, passing) in pairs.items()}
     rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
     coef_b = 64 * nf
     hit_b = n * (4 + 4 + 1 + 4 + 4)  # t, index, hit, u, v
-    flat = {'closest': _bound(flops, rays_b + coef_b + hit_b),
-            'any_flat': _bound(flops, rays_b + _nbytes(tmax) + coef_b + n)}
+    flat = {'closest': _bound(ops['closest'], rays_b + coef_b + hit_b),
+            'any_flat': _bound(ops['any_flat'],
+                               rays_b + _nbytes(tmax) + coef_b + n),
+            'ceiling': {k: v / PEAK_FP32_INSTR * 1e3
+                        for k, v in ops.items()},
+            'pairs': pairs}
+    flops = FLOPS_PER_PAIR * n * nf
     all_faces = {'shade': _bound(flops, rays_b + coef_b + 72 * nf + hit_b
                                  + 24 * n)[0],
-                 'any': flat['any_flat'][0]}
+                 'any': _bound(flops, rays_b + _nbytes(tmax) + coef_b
+                               + n)[0]}
     return flat, all_faces
 
 
@@ -1457,13 +1634,46 @@ def _print_kernel_times(card, name, n, times):
               f'ms, plain {pcall:.4f} ms')
 
 
+def _flat_times(card, name, scene, rays, times, bounds):
+    '''The [bound] lines of the flat kernels: the needed pairs, the
+    FMA-counted bound and the no-contraction ceiling beside the kernel's
+    time.'''
+    n, nf = rays[0].x.shape[0], int(scene.nfaces)
+    for k in ('closest', 'any_flat'):
+        ms = times[k][0]
+        b, by = bounds[k]
+        ceil = bounds['ceiling'][k]
+        total, passing = bounds['pairs'][k]
+        print(f'[bound] {card} | {k}_kernel {name} {n} rays x {nf} faces: '
+              f'{total} pairs needed ({total / (n * nf):.4f} of all), '
+              f'{passing} of them pass the sign test ({passing / total:.4f}'
+              f'); FMA-counted bound {b:.5f} ms (by {by}), no-contraction '
+              f'ceiling ({FLOPS_SIDE} FP32 instructions a pair, {FLOPS_T} '
+              f'more a passing one, at {PEAK_FP32_INSTR:.3g}/s) {ceil:.5f} '
+              f'ms; kernel {ms:.4f} ms ({b / ms:.1%} of the bound, '
+              f'{ceil / ms:.1%} of the ceiling)')
+
+
+def _rays_head_ms(scene):
+    '''fused_trace's device ms a sample at 512^2 (sample 9's inputs), as
+    _path_times times the primary head.'''
+    ro, rd, pt, base = _primary_inputs(scene, 9)
+
+    def kern10():
+        for _ in range(10):
+            fused.fused_trace(scene, ro, rd, pt, base)
+    kern10()
+    return _queued_us(kern10) / 1e4
+
+
 def phase_timings(card, scenes, tables, highpoly):
     '''The kernels' times and bounds, and the routes' samples/s.  Returns
     (kernel times {table: {kernel: times}}, megakernel times {scene:
-    times}, bounds {table or 'path...': ...}); a dense table's bounds
-    hold its tree casts' needed-pairs bounds, their all-faces bounds
-    ('all_faces'), their visits ('visits') and, on cornell and
-    cornell_monkey, the flat casts' bounds.'''
+    times}, bounds {table or 'path...': ...}, the rays head's ms {scene:
+    ms}); a dense table's bounds hold its tree casts' needed-pairs bounds,
+    their all-faces bounds ('all_faces'), their visits ('visits'), the
+    flat casts' bounds, their no-contraction ceilings ('ceiling') and
+    their needed pairs ('pairs').'''
     rng = np.random.RandomState(7)
     kt, bounds = {}, {}
     # the two cornells first, then highpoly, then the rest: the earlier
@@ -1477,29 +1687,31 @@ def phase_timings(card, scenes, tables, highpoly):
             _print_kernel_times(card, name, N_FULL, kt[name])
             bounds[name] = _blocked_bounds(card, highpoly, rays)
             continue
-        flat = name in ('cornell', 'cornell_monkey')
         rays = _rays(rng, tables[name], N_FULL)
-        kt[name] = _kernel_times(tables[name], rays, flat)
+        kt[name] = _kernel_times(tables[name], rays, True)
         _print_kernel_times(card, name, N_FULL, kt[name])
         lanes = _lanes(tables[name]) if name in TREE_SCENES else None
         tree, visits = _dense_bounds(card, name, tables[name], rays, lanes)
         flat_b, all_faces = _flat_bounds(tables[name], rays)
-        bounds[name] = {**tree, **(flat_b if flat else {}),
-                        'all_faces': all_faces, 'visits': visits}
+        bounds[name] = {**tree, **flat_b, 'all_faces': all_faces,
+                        'visits': visits}
+        _flat_times(card, name, tables[name], rays, kt[name], bounds[name])
     path_bounds = {name: _path_bound(card, name, scene)
                    for name, scene in scenes.items()}
     bounds['path'] = {k: v[0] for k, v in path_bounds.items()}
     bounds['path_all_faces'] = {k: v[1] for k, v in path_bounds.items()}
     bounds['path_visits'] = {name: _path_visits(card, name, scene)
                              for name, scene in scenes.items()}
-    pk = {}
+    pk, rays_head = {}, {}
     for name, scene in scenes.items():
         pk[name] = _path_times(scene)
+        rays_head[name] = _rays_head_ms(scene)
         ms, plain, call = pk[name]
         print(f'[timing] {card} | path_kernel {name} {RES}x{RES}, depth '
               f'{DEPTH}: device {ms:.4f} ms/sample, plain twin (wavefront, '
               f'CUDA casts) {plain:.4f} ms/sample (x{plain / ms:.1f}); per '
-              f'call with launch {call:.4f} ms')
+              f'call with launch {call:.4f} ms; explicit-ray head '
+              f'(fused_trace) {rays_head[name]:.4f} ms/sample')
     for name, scene in scenes.items():
         _print_route(card, name, 'megakernel', scene, SPP,
                      lambda f, sc=scene: render(sc, f, 0, spp=SPP), True)
@@ -1510,7 +1722,7 @@ def phase_timings(card, scenes, tables, highpoly):
                  HIGHPOLY_SPP,
                  lambda f: render(highpoly, f, 0, spp=HIGHPOLY_SPP), False,
                  ('blocked_shade_kernel', 'blocked_any_kernel'))
-    return kt, pk, bounds
+    return kt, pk, bounds, rays_head
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3145,6 +3357,7 @@ def phase_frontends(card, scenes):
 def main():
     card = phase_device()
     ptxas = phase_build()
+    face_path = _print_face_path(card)
     scenes = {name: make() for name, (make, _) in SCENES.items()}
     tables = {k: scenes[k] for k in WAVEFRONT_SCENES}
     tables['random_2504'] = _random_table(np.random.RandomState(3), 2500)
@@ -3155,12 +3368,14 @@ def main():
           f'{highpoly.block_bounds.shape[0]} blocks, {_tree(highpoly)}, '
           f'built in {time.perf_counter() - t0:.2f} s')
     errs = phase_kernels(tables, highpoly)
-    errs['path'] = {'max_abs_err': phase_megakernel(scenes)}
+    path_err, rays_err = phase_megakernel(scenes)
+    errs['path'] = {'max_abs_err': path_err}
 
     counts = phase_main(scenes, highpoly)
     phase_capacity()
     phase_golden(scenes)
-    kt, pk, bounds = phase_timings(card, scenes, tables, highpoly)
+    kt, pk, bounds, rays_head = phase_timings(card, scenes, tables,
+                                              highpoly)
     eng = phase_engines(card, scenes, highpoly)
     grad = phase_grad(card, scenes, highpoly)
     scale = phase_scale(card, scenes, highpoly)
@@ -3259,15 +3474,34 @@ def main():
         launches_grad_pair=grad['pair']['path'],
         launches_grad_wavefront=grad['wavefront']['path'],
         max_abs_err_gltf=front['gltf']['max_abs_err'],
-        max_abs_err_gltf_textured=front['textured']['max_abs_err']))
+        max_abs_err_gltf_textured=front['textured']['max_abs_err'],
+        launches_rays_head=counts['rays_head']['path'],
+        rays_head_ms_by_scene=rays_head,
+        max_abs_err_rays_head=rays_err))
+    # the flat casts: cornell's numbers (as in the first slices), and
+    # every table's
     kernels += [cast_entry(
         k, KERNEL_SOURCE, counts['table'][k], 'cornell',
         ms_monkey=kt['cornell_monkey'][k][0],
         plain_ms_monkey=kt['cornell_monkey'][k][1],
-        bound_ms_monkey=bounds['cornell_monkey'][k][0])
+        bound_ms_monkey=bounds['cornell_monkey'][k][0],
+        ms_by_scene={t: kt[t][k][0] for t in dense},
+        plain_ms_by_scene={t: kt[t][k][1] for t in dense},
+        call_ms_by_scene={t: kt[t][k][2] for t in dense},
+        bound_ms_by_scene={t: bounds[t][k][0] for t in dense},
+        ceiling_ms_by_scene={t: bounds[t]['ceiling'][k] for t in dense},
+        pairs_by_scene={t: bounds[t]['pairs'][k][0] for t in dense},
+        sign_pass_pairs_by_scene={t: bounds[t]['pairs'][k][1]
+                                  for t in dense},
+        **({'sass_face_path_instructions': face_path}
+           if k == 'closest' else {}))
         for k in ('closest', 'any_flat')]
+    blocked_extra = {'blocked_shade': dict(
+        launches_blocked_closest=counts['blocked_closest']['blocked_shade']),
+        'blocked_any': {}}
     kernels += [cast_entry(k, BLOCKED_SOURCE, counts['blocked'][k],
-                           'cornell_highpoly', **engine_extra[k])
+                           'cornell_highpoly', **engine_extra[k],
+                           **blocked_extra[k])
                 for k in ('blocked_shade', 'blocked_any')]
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -49,11 +49,33 @@
 // below, comparing tree slots with the avoided face's slot.
 //
 // The table-level casts (closest_kernel, any_flat_kernel) get a bare face
-// table per call and no tree: one thread per ray, 256-ray blocks, the face
-// table staged through shared memory in chunks of 256 faces (16 KB), each
-// face four broadcast LDS.128 per warp; a running packed-key minimum in a
-// register; any_flat_kernel leaves the face loop once every ray of its
-// block is occluded (or out of range).  The ragged ray edge is masked
+// table per call and no tree, so they test every face: building a tree per
+// call would cost more than the cast.  What bounds them is FP32 issue.
+// Every pair needs the sign test's 29 FP32 operations (plucker.cuh:
+// face_side); only a pair that passes it needs face_t's 7 more (An and
+// An * B > 0).  Under --fmad=false (below) each operation is one
+// instruction, at the card's 33.5e12 FP32 instructions a second.  A plain
+// flat loop of one ray a thread spends all 36 on every pair and ~16
+// further issue slots: four LDS.128 of the face, the sign-test logic, the
+// face id, the avoid compare, the key, the loop, a divergent reciprocal,
+// and a copy of each chunk of faces by all threads between two barriers.
+// What the design does about it.  Each thread holds kRays = 2 rays, so a
+// face's loads, branch and loop step serve two pairs.  The sign words of
+// both rays fold with a few LOP3 into one branch a face: a thread takes
+// it, with An, the An * B > 0 test, the reciprocal, the face id, avoid,
+// the far clip and the key (face_t), only for a face one of its rays
+// passes the sign test on.  The face table streams through a two-buffer
+// ring in shared memory: thread 0 issues each 128-face chunk as one bulk
+// asynchronous copy (cp.async.bulk) that completes on the buffer's
+// mbarrier a chunk ahead, so the next chunk lands while the block tests
+// this one, and one block barrier a chunk releases a buffer.  A block
+// holds 256 rays; any_flat_kernel's threads stop testing once their rays
+// are all occluded (or out of range), and the block leaves at the first
+// chunk barrier where all of them are (__syncthreads_and, every 128
+// faces), after the copies still in flight have landed.  Where most faces
+// pass a ray's sign test (large overlapping faces) the branch is taken on
+// most faces and costs more than it saves; on a table of one chunk the
+// ring's set-up is not hidden (PERF.md).  The ragged ray edge is masked
 // in-kernel; N is never padded.  No MXU-style chunk matmul, lane tiles or
 // one-hot extraction survive from the TPU kernels.  The file is built with
 // --fmad=false (intersect/dense_cast.py): products and sums round exactly
@@ -66,12 +88,12 @@
 
 namespace {
 
-constexpr int kBlock = 256;      // rays per block of the flat kernels
 // rays per block of the tree kernels: 128 on a tree with boxes; a table
-// of at most two leaves is a flat loop, with the flat kernels' blocks
+// of at most two leaves is a flat loop over a shared copy, in blocks of
+// kBlock
+constexpr int kBlock = 256;
 template <bool kBoxes>
 constexpr int kTreeBlock = kBoxes ? 128 : kBlock;
-constexpr int kChunk = 256;      // faces per shared-memory chunk
 // the most faces of a tree of at most two leaves (kBoxes false)
 constexpr int kSmallFaces = 2 * ptina::kLeafFaces;
 
@@ -246,54 +268,188 @@ any_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   occ_out[i] = occ;
 }
 
-// Cooperative copy of faces [base, base + cnt) into shared memory.
-__device__ __forceinline__ void stage_faces(float4* sc, const float4* coef,
-                                            int base, int cnt) {
-  for (int k = threadIdx.x; k < cnt * 4; k += kBlock)
-    sc[k] = coef[base * 4 + k];
+// ---- the table-level casts: a flat loop over a face ring (the note at
+// the head of the file) ------------------------------------------------
+constexpr int kFlatRays = 256;   // rays per block
+constexpr int kRays = 2;         // rays per thread
+constexpr int kFlatThreads = kFlatRays / kRays;
+constexpr int kChunk = 128;      // faces per ring buffer (8 KB)
+constexpr int kStages = 2;
+
+// The ring: the buffers, one mbarrier per buffer, the table.
+struct Ring {
+  float4* buf;                  // [kStages][4 * kChunk]
+  unsigned long long* full;     // [kStages]
+  const float4* coef;           // [f, 16] in device memory
+  int f, chunks;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kBlock)
+// Thread 0: chunk c into its buffer, completing on its mbarrier.
+__device__ __forceinline__ void ring_issue(const Ring& rg, int c) {
+  const int s = c % kStages;
+  const int cnt = min(kChunk, rg.f - c * kChunk);
+  const unsigned bytes = cnt * 4 * sizeof(float4);
+  const unsigned bar = smem_addr(rg.full + s);
+  // the block's reads of this buffer (generic proxy) come before the
+  // copy's writes (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(rg.buf + s * 4 * kChunk)),
+         "l"(rg.coef + static_cast<size_t>(c) * 4 * kChunk), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+// Chunk c's buffer, once its copy has landed.
+__device__ __forceinline__ const float4* ring_wait(const Ring& rg, int c) {
+  const int s = c % kStages;
+  const unsigned parity = (c / kStages) & 1;
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" :: "r"(smem_addr(rg.full + s)), "r"(parity) : "memory");
+  return rg.buf + s * 4 * kChunk;
+}
+
+// Thread 0 makes the mbarriers and issues the first kStages chunks; the
+// block's barrier then publishes the mbarriers.
+__device__ __forceinline__ void ring_start(const Ring& rg) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(rg.full + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < min(kStages, rg.chunks); ++c) ring_issue(rg, c);
+  }
+  __syncthreads();
+}
+
+// After the block's barrier that follows chunk c: thread 0 refills its
+// buffer with chunk c + kStages.
+__device__ __forceinline__ void ring_next(const Ring& rg, int c) {
+  if (threadIdx.x == 0 && c + kStages < rg.chunks)
+    ring_issue(rg, c + kStages);
+}
+
+// Before a block leaves after chunk c (the any cast's vote): thread 0
+// waits out the copies still landing in the block's shared memory.
+__device__ __forceinline__ void ring_drain(const Ring& rg, int c) {
+  if (threadIdx.x == 0)
+    for (int k = c + 1; k < min(c + kStages, rg.chunks); ++k) ring_wait(rg, k);
+}
+
+// This thread's kRays rays: ray k is blockIdx.x * kFlatRays + k *
+// kFlatThreads + threadIdx.x, so each load and store of a ray row
+// coalesces.  A ray past n is live false and, for the any cast, occluded
+// from the start.
+struct FlatRays {
+  ptina::Ray r[kRays];
+  int av[kRays];
+  bool live[kRays];
+
+  __device__ __forceinline__ int index(int k) const {
+    return blockIdx.x * kFlatRays + k * kFlatThreads + threadIdx.x;
+  }
+
+  __device__ __forceinline__ FlatRays(const float* ox, const float* oy,
+                                      const float* oz, const float* dx,
+                                      const float* dy, const float* dz,
+                                      const int* avoid, int n) {
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int i = index(k);
+      live[k] = i < n;
+      r[k] = live[k] ? ptina::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i],
+                                       dz[i])
+                     : ptina::make_ray(0.f, 0.f, 0.f, 0.f, 0.f, 1.f);
+      av[k] = live[k] ? avoid[i] : -1;
+    }
+  }
+};
+
+// Every face of one chunk (base, cnt faces at sc) against a thread's rays:
+// hit(k, fid, t) for each valid pair of ray k with t < kInf.
+template <typename Hit>
+__device__ __forceinline__ void test_chunk(const FlatRays& fr,
+                                           const float4* sc, int base,
+                                           int cnt, Hit hit) {
+#pragma unroll 4
+  for (int j = 0; j < cnt; ++j) {
+    const float4 c0 = sc[4 * j], c1 = sc[4 * j + 1], c2 = sc[4 * j + 2],
+                 c3 = sc[4 * j + 3];
+    float b[kRays];
+    int side[kRays];
+    int all = -1;  // its sign bit stays set while every ray fails
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      side[k] = ptina::face_side(fr.r[k], c0, c1, c2, c3, &b[k]);
+      all &= side[k];
+    }
+    if (all >= 0) {
+      const int fid = base + j;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) {
+        float t;
+        if (side[k] >= 0 && ptina::face_t(fr.r[k], c3, b[k], &t) &&
+            fid != fr.av[k] && t < ptina::kInf)
+          hit(k, fid, t);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
 closest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                const float* __restrict__ oz, const float* __restrict__ dx,
                const float* __restrict__ dy, const float* __restrict__ dz,
                const int* __restrict__ avoid, const float4* __restrict__ coef,
                int n, int f, int fid_mask, ptina::HitOut out) {
-  __shared__ float4 sc[kChunk * 4];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  ptina::Ray r = live ? ptina::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i],
-                                        dz[i])
-                      : ptina::make_ray(0.f, 0.f, 0.f, 0.f, 0.f, 1.f);
-  const int av = live ? avoid[i] : -1;
-  int best = ptina::kKeyMiss;
+  __shared__ __align__(128) float4 buf[kStages * 4 * kChunk];
+  __shared__ __align__(8) unsigned long long full[kStages];
+  const Ring rg{buf, full, coef, f, (f + kChunk - 1) / kChunk};
+  ring_start(rg);
+  const FlatRays fr(ox, oy, oz, dx, dy, dz, avoid, n);
+  int best[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) best[k] = ptina::kKeyMiss;
 
-  for (int base = 0; base < f; base += kChunk) {
-    const int cnt = min(kChunk, f - base);
-    stage_faces(sc, coef, base, cnt);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
-      float t;
-      bool valid = ptina::face_hit(r, sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
-                                   sc[4 * j + 3], &t);
-      const int fid = base + j;
-      if (valid && fid != av && t < ptina::kInf)
-        best = min(best, ptina::pack_key(t, fid, fid_mask));
+  for (int c = 0; c < rg.chunks; ++c) {
+    const int base = c * kChunk;
+    test_chunk(fr, ring_wait(rg, c), base, min(kChunk, f - base),
+               [&](int k, int fid, float t) {
+                 best[k] = min(best[k], ptina::pack_key(t, fid, fid_mask));
+               });
+    if (c + kStages < rg.chunks) {
+      __syncthreads();  // every thread is done with chunk c's buffer
+      ring_next(rg, c);
     }
-    __syncthreads();  // before the next chunk overwrites sc
   }
-  if (!live) return;
-  if (best == ptina::kKeyMiss) {
-    ptina::store_miss<false>(out, i, n);
-    return;
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    if (!fr.live[k]) continue;
+    const int i = fr.index(k);
+    if (best[k] == ptina::kKeyMiss)
+      ptina::store_miss<false>(out, i, n);
+    else
+      ptina::store_hit<false>(out, fr.r[k],
+                              reinterpret_cast<const float*>(coef), nullptr,
+                              best[k] & fid_mask,
+                              ptina::key_decode_t(best[k], fid_mask), i, n);
   }
-  ptina::store_hit<false>(out, r, reinterpret_cast<const float*>(coef),
-                          nullptr, best & fid_mask,
-                          ptina::key_decode_t(best, fid_mask), i, n);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kFlatThreads)
 any_flat_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                 const float* __restrict__ oz, const float* __restrict__ dx,
                 const float* __restrict__ dy, const float* __restrict__ dz,
@@ -301,34 +457,45 @@ any_flat_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                 const float* __restrict__ tmax,
                 const float4* __restrict__ coef, int n, int f,
                 bool* __restrict__ occ_out) {
-  __shared__ float4 sc[kChunk * 4];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  ptina::Ray r = live ? ptina::make_ray(ox[i], oy[i], oz[i], dx[i], dy[i],
-                                        dz[i])
-                      : ptina::make_ray(0.f, 0.f, 0.f, 0.f, 0.f, 1.f);
-  const int av = live ? avoid[i] : -1;
+  __shared__ __align__(128) float4 buf[kStages * 4 * kChunk];
+  __shared__ __align__(8) unsigned long long full[kStages];
+  const Ring rg{buf, full, coef, f, (f + kChunk - 1) / kChunk};
+  ring_start(rg);
+  const FlatRays fr(ox, oy, oz, dx, dy, dz, avoid, n);
   // as any_kernel: t < min(tmax, INF); a parked ray never occludes
-  const float tm = live ? tmax[i] : 0.f;
-  bool occ = false;
-
-  for (int base = 0; base < f; base += kChunk) {
-    const int cnt = min(kChunk, f - base);
-    stage_faces(sc, coef, base, cnt);
-    __syncthreads();
-    if (live && !occ) {
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        float t;
-        bool valid = ptina::face_hit(r, sc[4 * j], sc[4 * j + 1],
-                                     sc[4 * j + 2], sc[4 * j + 3], &t);
-        occ |= valid && (base + j) != av && t < ptina::kInf && t < tm;
-      }
-    }
-    // doubles as the barrier before the next chunk overwrites sc
-    if (__syncthreads_and(occ || !live)) break;
+  float tm[kRays];
+  bool occ[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    tm[k] = fr.live[k] ? tmax[fr.index(k)] : 0.f;
+    occ[k] = false;
   }
-  if (live) occ_out[i] = occ;
+  // a thread whose rays are all occluded (or out of range) tests no more
+  // faces; the block leaves once all of its threads are so
+  bool done = true;
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) done &= !fr.live[k];
+
+  for (int c = 0; c < rg.chunks; ++c) {
+    const int base = c * kChunk;
+    const float4* sc = ring_wait(rg, c);
+    if (!done) {
+      test_chunk(fr, sc, base, min(kChunk, f - base),
+                 [&](int k, int, float t) { occ[k] |= t < tm[k]; });
+      done = true;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) done &= occ[k] || !fr.live[k];
+    }
+    // every thread is done with chunk c's buffer, and the block's vote
+    if (__syncthreads_and(done)) {
+      ring_drain(rg, c);
+      break;
+    }
+    ring_next(rg, c);
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k)
+    if (fr.live[k]) occ_out[fr.index(k)] = occ[k];
 }
 
 inline int grid_for(int n, int block) { return (n + block - 1) / block; }
@@ -402,7 +569,7 @@ int ptina_cast_closest(const float* ox, const float* oy, const float* oz,
                        const int* avoid, const float* coef, int n, int f,
                        int fid_mask, float* t, int* idx, bool* hit, float* u,
                        float* v, void* stream) {
-  closest_kernel<<<grid_for(n, kBlock), kBlock, 0,
+  closest_kernel<<<grid_for(n, kFlatRays), kFlatThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, avoid, reinterpret_cast<const float4*>(coef), n,
       f, fid_mask, ptina::HitOut{t, idx, hit, u, v, nullptr});
@@ -416,7 +583,7 @@ int ptina_cast_any_flat(const float* ox, const float* oy, const float* oz,
                         const int* avoid, const float* tmax,
                         const float* coef, int n, int f, bool* occ,
                         void* stream) {
-  any_flat_kernel<<<grid_for(n, kBlock), kBlock, 0,
+  any_flat_kernel<<<grid_for(n, kFlatRays), kFlatThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, avoid, tmax,
       reinterpret_cast<const float4*>(coef), n, f, occ);

@@ -2,11 +2,19 @@
 // every bounce of every path, in one launch.
 //
 // Replaces ptina_tpu/engine/fused.py::_path_kernel (launched by
-// _fused_call) in its two heads that have callers:
+// _fused_call) in its three heads (PtinaPathParams::head):
 //   primary  (fused_trace_primary): the kernel makes the camera rays and
 //            the whole Sobol + wang-hash uniform stream itself;
 //   explicit (fused_trace_uniforms): given rays and a [2 + 6 depth, N]
-//            uniform block (MLT replay, the forward of the gradient pair).
+//            uniform block (MLT replay, the forward of the gradient pair);
+//   rays     (fused_trace): given rays and a per-ray hash base[i] (the
+//            sampling.wanghash2 bit pattern), the uniform stream made in
+//            the kernel from the Sobol point and base[i], as the primary
+//            head makes it from the pixel's hash.
+// The primary and explicit heads share one kernel and pick at run time
+// (PtinaPathParams::head), as they always have; the rays head is an
+// instantiation of its own (kRays), so its code adds no register or
+// spill to theirs (chip_smoke.py prints ptxas's for each instantiation).
 // It computes what path_trace computes (engine/path.py, the plain twin
 // through engine/fused.py:fused_trace_*_plain): per bounce a closest cast
 // with attributes, the material row with texture modulation, the light
@@ -63,6 +71,10 @@ namespace {
 
 constexpr int kBlock = 128;  // paths per block
 constexpr int kMaxDims = 98;  // the primary head's Sobol point: sobol.MAX_DIMS
+// PtinaPathParams::head (engine/fused.py: _HEAD_*)
+constexpr int kHeadExplicit = 0;
+constexpr int kHeadPrimary = 1;
+constexpr int kHeadRays = 2;
 constexpr unsigned kGold = 0x9e3779b9u;
 constexpr float kTwoPowM32 = static_cast<float>(1.0 / 4294967296.0);
 
@@ -87,9 +99,10 @@ struct PtinaPathParams {
   const int* tex_ny;         // [T]
   const float* world_fac;    // [4]
   const float* cam;          // [4, 4] view -> world (primary head)
-  const float* ray_o[3];     // [N] each (explicit head)
+  const float* ray_o[3];     // [N] each (explicit and rays heads)
   const float* ray_d[3];
   const float* uniforms;     // [2 + 6 depth, N] (explicit head)
+  const int* base;           // [N] per-ray hash (rays head)
   float* out;                // [3, N]
   const float4* tree_coef;   // [F, 16] face_coef in tree slot order
   const float4* nodes;       // [2 tree_p, 8] the box tree (tree.cuh)
@@ -101,10 +114,10 @@ struct PtinaPathParams {
   int depth;
   int zero;      // Materials.zero as disney.cuh kZero* bits
   int kinds;     // bit 0: a point light exists, bit 1: an area light
-  int primary;   // 1: primary head, 0: explicit head
+  int head;      // kHeadExplicit, kHeadPrimary or kHeadRays
   int x0, y0, tile_ny;  // primary: tile offset and rows per film column
   float fnx, fny;       // primary: full film size
-  float pt[ptina::kMaxDims];  // primary: the sample's Sobol point
+  float pt[ptina::kMaxDims];  // primary and rays: the sample's Sobol point
 };
 
 namespace ptina {
@@ -121,10 +134,11 @@ __device__ __forceinline__ unsigned wanghash(unsigned x) {
 }
 
 // uniform row d of path i: sample_dims' remainder(pt[d] + rotation, 1)
-// in the primary head, the given block in the explicit one
+// in the primary and rays heads, the given block in the explicit one
+template <bool kRays>
 __device__ __forceinline__ float uniform(const PtinaPathParams& p,
                                          unsigned pbase, int d, int i) {
-  if (p.primary) {
+  if (kRays || p.head != kHeadExplicit) {
     const float rot = __uint2float_rn(wanghash(pbase + d * kGold)) *
                       kTwoPowM32;
     const float u = p.pt[d] + rot;
@@ -329,10 +343,12 @@ __device__ __forceinline__ V3 unproject(const float* m, float x, float y,
 // kBoxes: the casts test the tree's boxes (more than two leaves); a table
 // of one or two leaves (at most 64 faces: the cornell scenes) takes the
 // instantiation without them, whose registers are the shading's alone.
+// kRays: the rays head; else the primary or the explicit head, as
+// PtinaPathParams::head says.
 // At least 6 blocks of 128 an SM: ptxas then spills a little of the box
 // walk's state to L1-resident local memory, which costs less than the
 // occupancy it buys.
-template <bool kBoxes>
+template <bool kBoxes, bool kRays>
 __global__ void __launch_bounds__(kBlock, 6)
 path_kernel(const __grid_constant__ PtinaPathParams p) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
@@ -340,16 +356,18 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
 
   V3 ro, rd;
   unsigned pbase = 0;
-  if (p.primary) {
+  if (!kRays && p.head != kHeadExplicit) {
     // pixel_grid order: x major over the tile's columns
     const int ii = p.x0 + i / p.tile_ny;
     const int jj = p.y0 + i % p.tile_ny;
     pbase = wanghash(wanghash(static_cast<unsigned>(ii)) +
                      static_cast<unsigned>(jj));
-    const float x = (static_cast<float>(ii) + uniform(p, pbase, 0, i)) /
-                        p.fnx * 2.0f - 1.0f;
-    const float y = (static_cast<float>(jj) + uniform(p, pbase, 1, i)) /
-                        p.fny * 2.0f - 1.0f;
+    const float x =
+        (static_cast<float>(ii) + uniform<kRays>(p, pbase, 0, i)) / p.fnx *
+            2.0f - 1.0f;
+    const float y =
+        (static_cast<float>(jj) + uniform<kRays>(p, pbase, 1, i)) / p.fny *
+            2.0f - 1.0f;
     ro = unproject(p.cam, x, y, -1.0f);
     rd = vnormalize(unproject(p.cam, x, y, 1.0f) - ro);
   } else {
@@ -357,6 +375,8 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
             __ldg(p.ray_o[2] + i));
     rd = v3(__ldg(p.ray_d[0] + i), __ldg(p.ray_d[1] + i),
             __ldg(p.ray_d[2] + i));
+    if constexpr (kRays)
+      pbase = static_cast<unsigned>(__ldg(p.base + i));
   }
 
   LightPool lp;
@@ -426,9 +446,10 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
     // next-event estimation: light sample, shadow cast, BSDF eval, MIS
     float li_dis, li_pdf;
     V3 li_dir, li_color;
-    lights_sample(lp, hitpos, uniform(p, pbase, d0, i),
-                  uniform(p, pbase, d0 + 1, i), uniform(p, pbase, d0 + 2, i),
-                  &li_dis, &li_dir, &li_pdf, &li_color);
+    lights_sample(lp, hitpos, uniform<kRays>(p, pbase, d0, i),
+                  uniform<kRays>(p, pbase, d0 + 1, i),
+                  uniform<kRays>(p, pbase, d0 + 2, i), &li_dis, &li_dir,
+                  &li_pdf, &li_color);
     if (any3(li_color)) {
       const Ray sray = make_ray(hitpos.x, hitpos.y, hitpos.z, li_dir.x,
                                 li_dir.y, li_dir.z);
@@ -444,9 +465,11 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
     if (b == p.depth - 1) break;
     V3 outdir, color;
     float pdf;
-    disney_sample(m, p.zero, normal, sign, -rd, uniform(p, pbase, d0 + 3, i),
-                  uniform(p, pbase, d0 + 4, i), uniform(p, pbase, d0 + 5, i),
-                  &outdir, &pdf, &color);
+    disney_sample(m, p.zero, normal, sign, -rd,
+                  uniform<kRays>(p, pbase, d0 + 3, i),
+                  uniform<kRays>(p, pbase, d0 + 4, i),
+                  uniform<kRays>(p, pbase, d0 + 5, i), &outdir, &pdf,
+                  &color);
     throughput = throughput * color;
     ro = hitpos;
     rd = outdir;
@@ -460,6 +483,16 @@ path_kernel(const __grid_constant__ PtinaPathParams p) {
   p.out[2 * p.n + i] = result.z;
 }
 
+// The launch of the rays head (kRays) or of the other two, its
+// instantiation by the table's leaves.
+template <bool kRays>
+void launch_head(const PtinaPathParams& p, int grid, cudaStream_t s) {
+  if (p.tree_p > 2)
+    path_kernel<true, kRays><<<grid, kBlock, 0, s>>>(p);
+  else
+    path_kernel<false, kRays><<<grid, kBlock, 0, s>>>(p);
+}
+
 }  // namespace
 }  // namespace ptina
 
@@ -470,10 +503,12 @@ extern "C" {
 int ptina_path_trace(const PtinaPathParams* p, void* stream) {
   const int grid = (p->n + ptina::kBlock - 1) / ptina::kBlock;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->tree_p > 2)
-    ptina::path_kernel<true><<<grid, ptina::kBlock, 0, s>>>(*p);
+  if (p->head == ptina::kHeadRays)
+    ptina::launch_head<true>(*p, grid, s);
+  else if (p->head == ptina::kHeadPrimary || p->head == ptina::kHeadExplicit)
+    ptina::launch_head<false>(*p, grid, s);
   else
-    ptina::path_kernel<false><<<grid, ptina::kBlock, 0, s>>>(*p);
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,20 +44,46 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   return r;
 }
 
-// One (ray, face) pair: returns whether the face is a valid hit (avoid not
-// applied) and writes its t.  c0..c3 are the face's 16 coefficients.
-__device__ __forceinline__ bool face_hit(const Ray& r, float4 c0, float4 c1,
-                                         float4 c2, float4 c3, float* t) {
+// The first half of a pair, which every pair pays: U, V, B and W, and
+// the sign-bit test of U, V and W against B (29 FP32 operations).  Returns
+// the test's word, >= 0 where the pair passes (so the AND of several
+// pairs' words is >= 0 where any of them passes), and writes B, which
+// face_t needs.  A pair that fails it is no hit, whatever An.
+__device__ __forceinline__ int face_side(const Ray& r, float4 c0, float4 c1,
+                                         float4 c2, float4 c3, float* b) {
   float U = c0.x * r.p0 + c0.y * r.p1 + c0.z * r.p2 + c0.w * r.p3 +
             c1.x * r.p4 + c1.y * r.p5;
   float V = c1.z * r.p0 + c1.w * r.p1 + c2.x * r.p2 + c2.y * r.p3 +
             c2.z * r.p4 + c2.w * r.p5;
   float B = c3.x * r.dx + c3.y * r.dy + c3.z * r.dz;
-  float An = -(c3.x * r.ox + c3.y * r.oy + c3.z * r.oz + c3.w);
   float W = B - U - V;
   int bi = __float_as_int(B);
-  int side = (__float_as_int(U) ^ bi) | (__float_as_int(V) ^ bi) |
-             (__float_as_int(W) ^ bi);
+  *b = B;
+  return (__float_as_int(U) ^ bi) | (__float_as_int(V) ^ bi) |
+         (__float_as_int(W) ^ bi);
+}
+
+// The second half, for a pair that passed face_side: An and the An * B > 0
+// test (7 FP32 operations); returns whether the face is a valid hit (avoid
+// not applied) and writes its t.
+__device__ __forceinline__ bool face_t(const Ray& r, float4 c3, float B,
+                                       float* t) {
+  float An = -(c3.x * r.ox + c3.y * r.oy + c3.z * r.oz + c3.w);
+  bool valid = An * B > 0.0f;
+  // only valid pairs pay for the IEEE reciprocal
+  *t = valid ? An * __frcp_rn(B) : kInf;
+  return valid;
+}
+
+// One (ray, face) pair: returns whether the face is a valid hit (avoid not
+// applied) and writes its t.  c0..c3 are the face's 16 coefficients.
+// face_side, then face_t's arithmetic for every pair without a branch
+// (the tree casts and the megakernel, whose registers were fitted to it).
+__device__ __forceinline__ bool face_hit(const Ray& r, float4 c0, float4 c1,
+                                         float4 c2, float4 c3, float* t) {
+  float B;
+  const int side = face_side(r, c0, c1, c2, c3, &B);
+  float An = -(c3.x * r.ox + c3.y * r.oy + c3.z * r.oz + c3.w);
   bool valid = (side >= 0) && (An * B > 0.0f);
   // only valid pairs pay for the IEEE reciprocal
   *t = valid ? An * __frcp_rn(B) : kInf;

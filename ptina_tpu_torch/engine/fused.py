@@ -3,7 +3,7 @@ The path megakernel: one whole progressive sample, every bounce of every
 path, in one CUDA launch.
 
 Reference: ptina_tpu/engine/fused.py (`_path_kernel` through
-`_fused_call`).  Two heads of the one kernel (csrc/fused_path.cu,
+`_fused_call`).  Three heads of the one kernel (csrc/fused_path.cu,
 sm_90a), each with its plain twin beside it:
 
   * fused_trace_primary  — the production render: camera rays, lens
@@ -12,6 +12,13 @@ sm_90a), each with its plain twin beside it:
   * fused_trace_uniforms — given rays and an explicit [2 + 6 depth, N]
     uniform block (rows 0-1, the lens dims, are not read); the entry of
     MLT replay and of the gradient pair's forward; twin: path_trace.
+  * fused_trace — given rays (callers who build their own), the
+    sample's Sobol point and a per-ray hash `base` (the
+    sampling.wanghash2 bit pattern): the uniform stream is made in the
+    kernel as the primary head makes it from the pixel's hash; twin:
+    the same uniforms (sobol.hash_rotation) + path_trace.  Fed the
+    primary head's camera rays and wanghash2(i, j), it equals
+    fused_trace_primary bit for bit.
 
 fused_trace_diff is the differentiable entry (reference: fused.py's
 jax.custom_vjp fused_trace_diff): FusedTraceDiff, a
@@ -29,9 +36,6 @@ failed build or a failed launch all raise; nothing falls back to the
 wavefront).  On identical inputs the twin equals the wavefront render bit
 for bit; on the card its casts are the wavefront's CUDA casts.
 
-The reference's explicit-ray head with in-kernel RNG (fused_trace) has
-no caller outside its tests and is not ported.
-
 Eligibility (fused_eligible) is decided from the scene alone, before any
 build.  The port's own limits, from its kernel's resources: the scene is
 on a CUDA device and on the dense route (accel != 'blocked', at most
@@ -40,8 +44,9 @@ textured environment has its atlas loaded.  Blocked-route scenes take the
 wavefront with the blocked casts, as the reference's do (fused.py:84).  The kernel reads every table
 through the L1/L2 caches from device memory, so the reference's VMEM caps
 (MAX_FUSED_TEX_BYTES / MAX_FUSED_TEX_BINDINGS) have no counterpart: any
-atlas, binding, material or light count fits.  The primary head's depth
-is at most 16: its Sobol point rides in the launch parameters and has at
+atlas, binding, material or light count fits.  The depth is at most 16
+in the heads that make their uniforms (fused_trace_primary,
+fused_trace): the Sobol point rides in the launch parameters and has at
 most sampling/sobol.MAX_DIMS = 98 dimensions (the reference has no cap).
 
 Tables: the kernel reads the scene's tensors as they are — the face
@@ -71,15 +76,17 @@ from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.intersect.blocked import tree_leaves
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.plucker import key_mask_for
-from ptina_tpu_torch.sampling.sobol import pixel_rotation, MAX_DIMS
+from ptina_tpu_torch.sampling.sobol import (hash_rotation, pixel_rotation,
+                                            MAX_DIMS)
 from ptina_tpu_torch.scene import with_tensor
 from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
                                               raise_on, stream_ptr)
 from ptina_tpu_torch.utils.vec import V3
 
 __all__ = ['fused_eligible', 'fused_trace_primary', 'fused_trace_uniforms',
-           'fused_trace_diff', 'FusedTraceDiff', 'fused_trace_primary_plain',
-           'fused_trace_uniforms_plain', 'fused_trace_visits',
+           'fused_trace', 'fused_trace_diff', 'FusedTraceDiff',
+           'fused_trace_primary_plain', 'fused_trace_uniforms_plain',
+           'fused_trace_plain', 'fused_trace_visits',
            'build_library', 'LAUNCHES', 'MAX_FUSED_FACES']
 
 MAX_FUSED_FACES = MAX_DENSE_FACES
@@ -95,6 +102,9 @@ _ZERO_BITS = {'metallic': 1, 'subsurface': 2, 'sheen': 4, 'clearcoat': 8,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# PtinaPathParams::head (csrc/fused_path.cu kHead*)
+_HEAD_EXPLICIT, _HEAD_PRIMARY, _HEAD_RAYS = 0, 1, 2
+
 
 class _Params(ctypes.Structure):
     '''Mirror of csrc/fused_path.cu's PtinaPathParams.'''
@@ -104,12 +114,12 @@ class _Params(ctypes.Structure):
                            'light_type', 'light_count', 'tex_data', 'tex_nx',
                            'tex_ny', 'world_fac', 'cam')]
         + [('ray_o', _P * 3), ('ray_d', _P * 3), ('uniforms', _P),
-           ('out', _P), ('tree_coef', _P), ('nodes', _P), ('order', _P),
-           ('visits', _P)]
+           ('base', _P), ('out', _P), ('tree_coef', _P), ('nodes', _P),
+           ('order', _P), ('visits', _P)]
         + [(k, _I) for k in ('n', 'f', 'tree_p', 'fid_mask', 'mat_rows',
                              'light_slots',
                              'tex_h', 'tex_w', 'use_tex', 'env_tex', 'depth',
-                             'zero', 'kinds', 'primary', 'x0', 'y0',
+                             'zero', 'kinds', 'head', 'x0', 'y0',
                              'tile_ny')]
         + [('fnx', _F), ('fny', _F), ('pt', _F * MAX_DIMS)])
 
@@ -243,19 +253,32 @@ def fused_trace_primary_plain(scene, pt, nx, ny, x0=0, y0=0, fnx=None,
     return path_trace(scene, ro, rd, u, lanes=lanes)
 
 
-def _primary_params(scene, pt, nx, ny, x0, y0, fnx, fny):
+def _host_point(pt):
+    '''The Sobol point of the heads that make their uniforms, as a host
+    float32 vector of 2 + 6 depth <= MAX_DIMS dimensions (else raises).'''
     pt = torch.as_tensor(pt, dtype=torch.float32).reshape(-1).cpu()
     dims = pt.shape[0]
     if dims > MAX_DIMS or dims < 2 or (dims - 2) % 6:
-        raise ValueError(f'Sobol point of {dims} dims: the primary head '
-                         f'takes 2 + 6 depth <= MAX_DIMS = {MAX_DIMS}')
+        raise ValueError(f'Sobol point of {dims} dims: the kernel takes '
+                         f'2 + 6 depth <= MAX_DIMS = {MAX_DIMS}')
+    return pt
+
+
+def _point_params(scene, pt, n, out):
+    '''_params with the Sobol point in the launch parameters.'''
+    pt = _host_point(pt)
+    p = _params(scene, n, (pt.shape[0] - 2) // 6, out)
+    p.pt[:pt.shape[0]] = pt.tolist()
+    return p
+
+
+def _primary_params(scene, pt, nx, ny, x0, y0, fnx, fny):
     n = nx * ny
     out = torch.empty((3, n), dtype=torch.float32, device=scene.device)
-    p = _params(scene, n, (dims - 2) // 6, out)
-    p.primary, p.x0, p.y0, p.tile_ny = 1, int(x0), int(y0), ny
+    p = _point_params(scene, pt, n, out)
+    p.head, p.x0, p.y0, p.tile_ny = _HEAD_PRIMARY, int(x0), int(y0), ny
     p.fnx = float(nx if fnx is None else fnx)
     p.fny = float(ny if fny is None else fny)
-    p.pt[:dims] = pt.tolist()
     return p, out
 
 
@@ -294,6 +317,23 @@ def fused_trace_uniforms_plain(scene, ro, rd, uniforms):
     return path_trace(scene, ro, rd, uniforms)
 
 
+def _ray_rows(ro, rd, dev):
+    '''The six ray rows, each a contiguous [N] row on dev (else raises).'''
+    n = ro.x.shape[0]
+    rows = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
+    if any(r.device != dev or r.dim() != 1 or r.shape[0] != n
+           or not r.is_contiguous() for r in rows):
+        raise ValueError('rays must be contiguous [N] rows on the scene\'s '
+                         'device')
+    return rows
+
+
+def _set_rays(p, rows):
+    for k in range(3):
+        p.ray_o[k] = _addr(rows[k], torch.float32)
+        p.ray_d[k] = _addr(rows[3 + k], torch.float32)
+
+
 def fused_trace_uniforms(scene, ro, rd, uniforms):
     '''Trace [N] rays through the whole path on an explicit random stream.
     ro, rd: V3 of contiguous [N] float32 rows; uniforms a contiguous
@@ -305,11 +345,7 @@ def fused_trace_uniforms(scene, ro, rd, uniforms):
     if dev.type == 'cpu':
         return fused_trace_uniforms_plain(scene, ro, rd, uniforms)
     n = ro.x.shape[0]
-    rows = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
-    if any(r.device != dev or r.dim() != 1 or r.shape[0] != n
-           or not r.is_contiguous() for r in rows):
-        raise ValueError('rays must be contiguous [N] rows on the scene\'s '
-                         'device')
+    rows = _ray_rows(ro, rd, dev)
     dims = uniforms.shape[0]
     if uniforms.device != dev or uniforms.dim() != 2 \
             or uniforms.shape[1] != n or dims < 2 or (dims - 2) % 6 \
@@ -318,11 +354,49 @@ def fused_trace_uniforms(scene, ro, rd, uniforms):
                          'block on the scene\'s device')
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     p = _params(scene, n, (dims - 2) // 6, out)
-    p.primary = 0
-    for k in range(3):
-        p.ray_o[k] = _addr(rows[k], torch.float32)
-        p.ray_d[k] = _addr(rows[3 + k], torch.float32)
+    p.head = _HEAD_EXPLICIT
+    _set_rays(p, rows)
     p.uniforms = _addr(uniforms, torch.float32)
+    return _launch(p, out)
+
+
+def fused_trace_plain(scene, ro, rd, pt, base):
+    '''Plain twin of the explicit-ray head: uniforms remainder(pt[d] +
+    rotation, 1), the rotation hash_rotation(base) (the kernel's and
+    sample_dims' arithmetic), then path_trace.'''
+    from ptina_tpu_torch.engine.path import path_trace
+    dev = scene.device
+    pt = _host_point(pt).to(dev)
+    rot = hash_rotation(torch.as_tensor(base).to(dev), pt.shape[0])
+    return path_trace(scene, ro, rd, torch.remainder(pt[:, None] + rot, 1.0))
+
+
+def fused_trace(scene, ro, rd, pt, base):
+    '''Trace [N] rays through the whole path, the random stream made in
+    the kernel: ro, rd V3 of contiguous [N] float32 rows; pt the sample's
+    [2 + 6 depth] Sobol point (its length sets the depth; rows 0-1, the
+    lens dims, are not read), best on the host: on the card it rides in
+    the launch parameters; base [N] int32, the per-ray rotation hash
+    (sampling.wanghash2's bit pattern for a pixel).  Uniform d of ray i
+    is remainder(pt[d] + u32_to_unit(wanghash(base[i] + d * 0x9e3779b9)),
+    1), as fused_trace_primary makes it from the pixel's hash.  On the
+    card a misshapen, strided or misplaced operand raises.  Returns
+    radiance V3.'''
+    dev = _check_device(scene)
+    if dev.type == 'cpu':
+        return fused_trace_plain(scene, ro, rd, pt, base)
+    n = ro.x.shape[0]
+    rows = _ray_rows(ro, rd, dev)
+    if not isinstance(base, torch.Tensor) or base.device != dev \
+            or base.dtype != torch.int32 or tuple(base.shape) != (n,) \
+            or not base.is_contiguous():
+        raise ValueError('base must be a contiguous [N] int32 row on the '
+                         'scene\'s device')
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    p = _point_params(scene, pt, n, out)
+    p.head = _HEAD_RAYS
+    _set_rays(p, rows)
+    p.base = _addr(base, torch.int32)
     return _launch(p, out)
 
 

@@ -3,7 +3,8 @@ Blocked two-level ray casts for big scenes: the wavefront integrator's
 closest and occlusion casts on the blocked route.
 
 Reference: ptina_tpu/intersect/blocked.py (`_blocked_shade_kernel` through
-`blocked_cast_shade`, `_blocked_mint_kernel` through `blocked_cast_any`).
+`blocked_cast_shade` and its hit-only view `blocked_cast_closest`,
+`_blocked_mint_kernel` through `blocked_cast_any`).
 
 The scene's faces are Morton-ordered and padded to whole BLOCK_FACES
 blocks (scene.make_scene); block b is rows b * 512 ... b * 512 + 511 of the
@@ -65,7 +66,7 @@ from ptina_tpu_torch.intersect.plucker import (
 from ptina_tpu_torch.utils.mathutils import INF
 from ptina_tpu_torch.utils.vec import V3
 
-__all__ = ['blocked_cast_shade', 'blocked_cast_any',
+__all__ = ['blocked_cast_shade', 'blocked_cast_closest', 'blocked_cast_any',
            'blocked_cast_shade_plain', 'blocked_cast_any_plain',
            'blocked_cast_visits', 'box_entries', 'leaf_pairs',
            'build_library', 'LAUNCHES', 'BLOCK_FACES', 'LEAF_FACES',
@@ -292,6 +293,14 @@ def blocked_cast_shade(ro, rd, avoid, coef, attr, block_bounds,
                       node_bounds, p, out, None)
     hit, t, idx, u, v, attrs = out
     return Hit(hit=hit, t=t, index=idx, u=u, v=v), attrs
+
+
+def blocked_cast_closest(ro, rd, avoid, coef, attr, block_bounds,
+                         node_bounds):
+    '''Hit-only view of blocked_cast_shade (the same kernel pass): Hit.'''
+    hit, _ = blocked_cast_shade(ro, rd, avoid, coef, attr, block_bounds,
+                                node_bounds)
+    return hit
 
 
 def blocked_cast_any(ro, rd, avoid, tmax, coef, block_bounds, node_bounds):

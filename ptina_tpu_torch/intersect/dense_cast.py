@@ -15,7 +15,9 @@ Reference: ptina_tpu/intersect/pallas_cast.py (`_shade_kernel` through
     `avoid` is an original face id.
   * cast_closest / cast_any_flat — the table-level casts
     (dispatch.cast_closest / cast_any), whose caller packs a bare face
-    table per call and has no tree: their kernels test every face.
+    table per call and has no tree: their kernels test every face,
+    streaming the table through shared memory, each thread holding two
+    rays.
 
 Each cast has a hand-written CUDA kernel (csrc/dense_cast.cu, sm_90a) and
 a plain torch version beside it (the hit contract of plucker.py in torch

@@ -36,7 +36,8 @@ from ptina_tpu_torch.intersect.brute import Hit
 from ptina_tpu_torch.utils.mathutils import INF
 
 __all__ = ['KEY_FID_MASK', 'KEY_MISS', 'N_COEF', 'N_ATTR', 'key_mask_for',
-           'pack_faces', 'ray_features', 'pair_hits', 'pair_keys',
+           'pack_faces', 'ray_features', 'pair_side', 'pair_hits',
+           'pair_keys',
            'key_decode_t', 'winner_uv', 'winner_hit', 'check_rays',
            'check_table', 'face_chunk']
 
@@ -96,18 +97,24 @@ def _i32(x):
     return x.view(torch.int32)
 
 
+def pair_side(p, rd, coef):
+    '''The sign-bit test of every (ray, face) pair of one face chunk
+    (csrc/plucker.cuh face_side): (side [N, Fc] int32, >= 0 where the
+    pair passes; B [N, Fc]).'''
+    u = _dot_rows(coef[:, 0:6], p)
+    v = _dot_rows(coef[:, 6:12], p)
+    b = _dot_rows(coef[:, 12:15], [rd.x, rd.y, rd.z])
+    w = b - u - v
+    bi = _i32(b)
+    return (_i32(u) ^ bi) | (_i32(v) ^ bi) | (_i32(w) ^ bi), b
+
+
 def pair_hits(p, ro, rd, coef, base, avoid):
     '''Every (ray, face) pair of one face chunk: (valid [N, Fc], t [N, Fc],
     face ids [Fc]).  coef: [Fc, 16] rows of faces base .. base + Fc - 1.'''
-    d = [rd.x, rd.y, rd.z]
-    o = [ro.x, ro.y, ro.z]
-    u = _dot_rows(coef[:, 0:6], p)
-    v = _dot_rows(coef[:, 6:12], p)
-    b = _dot_rows(coef[:, 12:15], d)
-    an = -(_dot_rows(coef[:, 12:15], o) + coef[None, :, 15])
-    w = b - u - v
-    bi = _i32(b)
-    side = (_i32(u) ^ bi) | (_i32(v) ^ bi) | (_i32(w) ^ bi)
+    side, b = pair_side(p, rd, coef)
+    an = -(_dot_rows(coef[:, 12:15], [ro.x, ro.y, ro.z])
+           + coef[None, :, 15])
     fids = base + torch.arange(coef.shape[0], dtype=torch.int32,
                                device=coef.device)
     valid = (side >= 0) & (an * b > 0.0) & (fids[None, :] != avoid[:, None])

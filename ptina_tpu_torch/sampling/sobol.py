@@ -25,7 +25,8 @@ from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.sampling import wanghash, wanghash2, u32_to_unit
 
 __all__ = ['sobol_vgrid', 'sobol', 'sobol_point', 'sobol_block', 'sample_dims',
-           'pixel_rotation', 'SKIP', 'SOBOL_BITS', 'MAX_DIMS']
+           'hash_rotation', 'pixel_rotation', 'SKIP', 'SOBOL_BITS',
+           'MAX_DIMS']
 
 SOBOL_BITS = 31
 SKIP = 64  # burn-in matching the reference (ptina/sampling/sobol.py:75)
@@ -244,14 +245,22 @@ def sobol_block(sample_index, ndims, device='cpu'):
     return pt.to(device)
 
 
-def pixel_rotation(pix_i, pix_j, ndims):
-    '''Per-pixel Cranley-Patterson rotation offsets [ndims, ...] in [0, 1],
-    dimension-major like the reference.  Constant across sample indices.'''
-    base = wanghash2(pix_i, pix_j)
+def hash_rotation(base, ndims):
+    '''Cranley-Patterson rotation offsets [ndims, ...] in [0, 1] of per-ray
+    hashes `base` (u32 values, or their int32 bit patterns):
+    u32_to_unit(wanghash(base + d * 0x9e3779b9)) for d < ndims,
+    dimension-major.'''
+    base = torch.as_tensor(base).to(torch.int64) & 0xFFFFFFFF
     dims = torch.arange(ndims, dtype=torch.int64, device=base.device)
     dims = dims.reshape((ndims,) + (1,) * base.dim())
     h = wanghash((base[None] + dims * 0x9e3779b9) & 0xFFFFFFFF)
     return u32_to_unit(h)
+
+
+def pixel_rotation(pix_i, pix_j, ndims):
+    '''Per-pixel Cranley-Patterson rotation offsets [ndims, ...] in [0, 1],
+    dimension-major like the reference.  Constant across sample indices.'''
+    return hash_rotation(wanghash2(pix_i, pix_j), ndims)
 
 
 def sample_dims(sample_index, pix_i, pix_j, ndims, rot=None):

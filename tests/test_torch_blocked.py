@@ -2,8 +2,9 @@
 Parity of the PyTorch port's big-scene route with the JAX reference: the
 Morton-ordered block scene build (ptina_tpu_torch.scene / scenes.
 cornell_highpoly), the blocked casts' plain versions (the twins of the
-CUDA kernels in csrc/blocked_cast.cu) against the JAX blocked Pallas
-kernels in interpret mode and against JAX brute, the table-level closest
+CUDA kernels in csrc/blocked_cast.cu) and the hit-only
+blocked_cast_closest against the JAX blocked Pallas kernels in interpret
+mode and against JAX brute, the table-level closest
 cast (kernel #1) against pallas_cast_closest in interpret mode, and a
 blocked render against the JAX render of the same scene.  The port's own
 box tree (Scene.node_bounds, which the CUDA kernels walk) is checked
@@ -48,6 +49,8 @@ from ptina_tpu.film import new_film as jnew_film, film_to_image as jto_image
 from ptina_tpu.engine.path import render as jrender
 from ptina_tpu.intersect import brute as jbrute
 from ptina_tpu.intersect.blocked import (blocked_cast_shade as jblocked_shade,
+                                         blocked_cast_closest as
+                                         jblocked_closest,
                                          blocked_cast_any as jblocked_any)
 from ptina_tpu.intersect.pallas_cast import (pallas_cast_closest,
                                              pallas_cast_any)
@@ -251,6 +254,35 @@ def test_blocked_any_matches_reference():
                            jnp.asarray(tmax))
     np.testing.assert_array_equal(got.numpy(), np.asarray(bref))
     assert 0.05 < got.numpy().mean() < 1.0 and not got.numpy()[:4].any()
+
+
+def test_blocked_closest_matches_reference():
+    '''blocked_cast_closest, the hit-only view of the shade pass, on the
+    5-block cornell_highpoly(nu=48, nv=24, accel='blocked') against the
+    JAX one (its blocked kernel in interpret mode), rays from inside the
+    box, a quarter avoiding a random face; and equal to the shade pass's
+    own hit bit for bit.'''
+    js, ts = _cast_scenes('cornell_highpoly_48x24_blocked')
+    rng = np.random.RandomState(12)
+    n = 96
+    o = np.stack([rng.uniform(-1.9, 1.9, n), rng.uniform(0.1, 3.9, n),
+                  rng.uniform(-1.9, 1.9, n)], 1)
+    d = rng.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    (jro, jrd), (tro, trd) = _rays(o, d)
+    f = int(ts.nfaces)
+    avoid = np.where(rng.rand(n) < 0.25, rng.randint(0, f, n),
+                     -1).astype(np.int32)
+    ref = jblocked_closest(jro, jrd, js.t5b, js.attrsb, js.block_bounds,
+                           jnp.asarray(avoid), interpret=True)
+    got = blocked.blocked_cast_closest(tro, trd, torch.from_numpy(avoid),
+                                       ts.face_coef, ts.face_attr,
+                                       ts.block_bounds, ts.node_bounds)
+    hit = _assert_hits(got, ref)
+    assert hit.mean() > 0.8  # the box is open at the front
+    shade, _ = _shade(ts, tro, trd, avoid)
+    for k in ('hit', 't', 'index', 'u', 'v'):
+        assert torch.equal(getattr(got, k), getattr(shade, k)), k
 
 
 def test_blocked_avoid_excludes_self():

@@ -14,7 +14,12 @@ equal their plain versions on random rays, a ragged count and the
 wavefront's own per-bounce rays on the five dense benchmark scenes and a
 random 2,500-face table; their walk counters (dense_cast_visits) cover
 the pairs blocked.leaf_pairs counts; the table-level intersect.cast_closest
-/ cast_any launch only the flat kernels.  The blocked kernels run on
+/ cast_any launch only the flat kernels, which equal their plain versions
+at the edges of their register blocking (two rays a thread) and face
+ring: 1 ray, counts that fill no whole block, 1 face, a table that
+fills no whole chunk and the 8,192-face limit, `avoid` on every face,
+tmax 0, and a table whose face 0 occludes every ray (the block vote's
+early exit).  The blocked kernels run on
 cornell_highpoly(nu=48, nv=24, accel='blocked') (2,560 faces, 5 blocks,
 a box tree of 80 leaves in 128 slots), at 64^2 camera rays and on a
 random ragged batch, and on a two-block table built for an exact key tie
@@ -27,7 +32,10 @@ cornell_monkey >= 95% of paths within 1e-3 absolute and means within 2e-3
 relative; the textured, environment-lit and matball scenes (and a scene
 with every Disney lobe and both light kinds) >= 95% within 2e-2 relative
 to max(|ref|, 0.05) and means within 1e-2.  Half frames compose the full
-frame bit for bit.  The megakernel's two casts walk the scene's box tree
+frame bit for bit.  The explicit-ray head (fused_trace) fed the primary
+head's camera rays and wanghash2(i, j) equals fused_trace_primary bit for
+bit, and its plain twin at the gate above.  blocked_cast_closest is the
+blocked shade pass's hit.  The megakernel's two casts walk the scene's box tree
 (fused_nodes): an exact key tie across leaves goes to the lower face id
 though the walk meets the higher first (_fused_tie_scene); its visit
 counters (fused_trace_visits) cover at least the pairs blocked.leaf_pairs
@@ -48,7 +56,9 @@ from ptina_tpu_torch.film import new_film
 from ptina_tpu_torch.intersect import blocked, dense_cast
 from ptina_tpu_torch.intersect.plucker import pack_faces
 from ptina_tpu_torch.utils import cuda_build
-from ptina_tpu_torch.sampling.sobol import sample_dims, sobol_block
+from ptina_tpu_torch.sampling import wanghash2
+from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
+                                            sobol_block)
 from ptina_tpu_torch.scene import (make_scene, compute_block_bounds,
                                    compute_node_bounds,
                                    precompute_tri_functionals, LIGHT_POINT,
@@ -258,6 +268,125 @@ def test_table_level_casts_launch_flat_kernels(dev):
 def _assert_same_hit(a, b):
     for k in ('hit', 'index', 't', 'u', 'v'):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def _flat_table(nf, dev, seed=0):
+    '''A bare table of nf random faces, as dispatch.cast_closest packs
+    one.'''
+    rng = np.random.RandomState(seed)
+    tris = (rng.randn(nf, 3, 3) * 2.0).astype(np.float32)
+    return pack_faces(precompute_tri_functionals(torch.from_numpy(tris))
+                      )[0].to(dev)
+
+
+def _hold_flat(coef, ro, rd, avoid, tmax):
+    '''The flat kernels against their plain versions, bit for bit.
+    Returns the plain (Hit, occlusion).'''
+    cp = dense_cast.cast_closest_plain(ro, rd, avoid, coef)
+    op = dense_cast.cast_any_plain(ro, rd, avoid, tmax, coef)
+    ck = dense_cast.cast_closest(ro, rd, avoid, coef)
+    ok = dense_cast.cast_any_flat(ro, rd, avoid, tmax, coef)
+    torch.cuda.synchronize()
+    _assert_same_hit(ck, cp)
+    assert torch.equal(ok, op)
+    return cp, op
+
+
+@pytest.mark.parametrize('nf', [1, 129, 8192])
+@pytest.mark.parametrize('n', [1, 257, 1001, 100_003])
+def test_flat_kernels_ragged_edges(dev, n, nf):
+    '''Ray counts that fill no whole 256-ray block (and one ray), one
+    face, a table that fills no whole 128-face chunk, and the limit.'''
+    coef = _flat_table(nf, dev, seed=nf)
+    _hold_flat(coef, *_rays(n, nf, dev, seed=n))
+
+
+def test_flat_kernels_avoid_every_face_and_zero_tmax(dev):
+    scene = cornell_monkey(device=dev)
+    coef = scene.face_coef
+    f = coef.shape[0]
+    ro, rd, _, tmax = _rays(4 * f + 3, f, dev, seed=2)
+    every = torch.arange(ro.x.shape[0], dtype=torch.int32, device=dev) % f
+    first, _ = _hold_flat(coef, ro, rd, torch.full_like(every, -1), tmax)
+    assert first.hit.float().mean().item() > 0.5
+    _hold_flat(coef, ro, rd, every, tmax)
+    second, _ = _hold_flat(coef, ro, rd, first.index.clone(), tmax)
+    assert not bool((second.hit & (second.index == first.index)).any())
+    _, occ = _hold_flat(coef, ro, rd, every, torch.zeros_like(tmax))
+    assert not bool(occ.any())
+
+
+def test_any_flat_early_exit_all_occluded(dev):
+    '''Face 0 of a 2,049-face table (17 chunks) lies across every ray, so
+    each block of rays is occluded after its first chunk and leaves at
+    its vote, with copies still in flight; one block holds a parked ray
+    (tmax 0), which keeps that block testing every face.'''
+    rng = np.random.RandomState(8)
+    nf, n = 2049, 5000
+    tris = (rng.randn(nf, 3, 3) * 2.0).astype(np.float32)
+    tris[0] = [[-50.0, -50.0, 0.0], [50.0, -50.0, 0.0], [0.0, 80.0, 0.0]]
+    coef = pack_faces(precompute_tri_functionals(torch.from_numpy(tris))
+                      )[0].to(dev)
+    o = np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                  np.full(n, -5.0)], 1).astype(np.float32)
+    d = np.tile([[0.0, 0.0, 1.0]], (n, 1)) + rng.normal(0, 0.01, (n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = np.full(n, 100.0, np.float32)
+    tmax[300] = 0.0
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=dev)
+    ro = V3(t(o[:, 0]), t(o[:, 1]), t(o[:, 2]))
+    rd = V3(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
+    _, occ = _hold_flat(coef, ro, rd, t(np.full(n, -1), torch.int32),
+                        t(tmax))
+    assert not bool(occ[300]) and int(occ.sum()) == n - 1
+
+
+def test_explicit_ray_head(dev):
+    '''fused_trace on the primary head's camera rays and wanghash2(i, j)
+    equals fused_trace_primary bit for bit (64^2: the NDC divisions by a
+    power of two are exact in either form), and its plain twin at the
+    primary head's gate; one launch a call.'''
+    for name in sorted(MEGA):
+        make, relative = MEGA[name]
+        scene = make(dev)
+        res = 64
+        pt = sobol_block(3, 32)
+        ii, jj = pixel_grid(res, res, device=dev)
+        u = torch.remainder(pt.to(dev)[:, None]
+                            + pixel_rotation(ii, jj, 32), 1.0)
+        x = (ii.to(torch.float32) + u[0]) / res * 2.0 - 1.0
+        y = (jj.to(torch.float32) + u[1]) / res * 2.0 - 1.0
+        ro, rd = camera_rays(scene.cam_v2w, x, y)
+        base = wanghash2(ii, jj).to(torch.int32)
+        before = fused.LAUNCHES['path']
+        k = fused.fused_trace(scene, ro, rd, pt, base)
+        assert fused.LAUNCHES['path'] - before == 1
+        prim = fused.fused_trace_primary(scene, pt, res, res)
+        p = fused.fused_trace_plain(scene, ro, rd, pt, base)
+        torch.cuda.synchronize()
+        for c in 'xyz':
+            assert torch.equal(getattr(k, c), getattr(prim, c)), name
+        _assert_close(k, p, relative)
+    with pytest.raises(ValueError, match='base'):
+        fused.fused_trace(scene, ro, rd, pt, base.to(torch.int64))
+
+
+def test_blocked_closest_is_the_shade_hit(dev):
+    scene = _blocked_scene(dev)
+    ro, rd, avoid, _ = _rays(10_007, scene.face_coef.shape[0], dev, seed=4)
+    tables = (scene.face_coef, scene.face_attr, scene.block_bounds,
+              scene.node_bounds)
+    before = dict(blocked.LAUNCHES)
+    hit = blocked.blocked_cast_closest(ro, rd, avoid, *tables)
+    torch.cuda.synchronize()
+    assert blocked.LAUNCHES['blocked_shade'] - before['blocked_shade'] == 1
+    _assert_same_hit(hit, blocked.blocked_cast_shade(ro, rd, avoid,
+                                                     *tables)[0])
+    _assert_same_hit(hit, blocked.blocked_cast_shade_plain(ro, rd, avoid,
+                                                           *tables)[0])
 
 
 def _blocked_scene(dev):

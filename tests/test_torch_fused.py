@@ -10,6 +10,12 @@ Port vs JAX, the same scene arrays and the same Sobol point:
     itself in interpret mode, as tests/test_fused.py runs it;
   * fused_trace_uniforms on cornell at 16x16 against JAX
     fused_trace_uniforms(interpret=True) on the same rays and uniforms;
+  * fused_trace (the explicit-ray head: given rays, the Sobol point and
+    a per-ray hash) on cornell and the textured cornell at 16x16 against
+    JAX fused_trace(interpret=True) on the same rays, point and
+    wanghash2(i, j); and, within the port, fused_trace fed
+    fused_trace_primary's own camera rays and wanghash2(i, j) equal to
+    fused_trace_primary bit for bit;
   * envlight_scene at 16x16 and matball(roughness_tex=...) at 12x12,
     depth 2, against JAX path_trace on identical uniforms: interpret mode
     costs ~24 s per call on their 35 face chunks, path_trace ~4 s (the
@@ -33,15 +39,19 @@ import jax.numpy as jnp
 from ptina_tpu import scenes as jscenes
 from ptina_tpu.camera import camera_rays as jcamera_rays
 from ptina_tpu.engine.fused import (
+    fused_trace as jfused_trace,
     fused_trace_primary as jfused_primary,
     fused_trace_uniforms as jfused_uniforms)
 from ptina_tpu.engine.path import path_trace as jpath_trace
+from ptina_tpu.sampling import wanghash2 as jwanghash2
 from ptina_tpu.sampling.sobol import sample_dims as jsample_dims
 from ptina_tpu_torch import scenes as tscenes
 from ptina_tpu_torch.engine import fused
+from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.engine.path import render, render_sample, pixel_grid
 from ptina_tpu_torch.film import new_film
 from ptina_tpu_torch.intersect import dense_cast
+from ptina_tpu_torch.sampling import wanghash2
 from ptina_tpu_torch.sampling.sobol import sobol_block, pixel_rotation
 from ptina_tpu_torch.scene import scene_from_numpy
 from ptina_tpu_torch.utils.vec import V3
@@ -126,6 +136,49 @@ def test_uniforms_matches_jax_kernel():
     ref = _np3(jfused_uniforms(js, ro, rd, u, interpret=True))
     got = _np3(fused.fused_trace_uniforms(ts, *_to_port(ro, rd, u)))
     _assert_close(got, ref, textured=False)
+
+
+@pytest.mark.parametrize('name', ['cornell', 'cornell_textured'])
+def test_explicit_ray_head_matches_jax_kernel(name):
+    '''fused_trace on the JAX side's camera rays of sample 0, with its
+    Sobol point and the pixels' wanghash2 bit patterns as `base`.'''
+    js, ts = _pair(name)
+    res = 16
+    pt = sobol_block(0, PATH_DIMS)
+    ro, rd, _ = _jax_primary_inputs(js, res, PATH_DIMS)
+    ii, jj = jnp.meshgrid(jnp.arange(res), jnp.arange(res), indexing='ij')
+    jbase = jwanghash2(ii.reshape(-1), jj.reshape(-1))
+    ref = _np3(jfused_trace(js, ro, rd, jnp.asarray(pt.numpy()), jbase,
+                            interpret=True))
+    base = torch.from_numpy(np.asarray(jbase).astype(np.uint32)
+                            .view(np.int32))
+    tro, trd, _ = _to_port(ro, rd, np.zeros(1, np.float32))
+    before = dict(fused.LAUNCHES)
+    got = _np3(fused.fused_trace(ts, tro, trd, pt, base))
+    assert fused.LAUNCHES == before  # CPU: the plain twin, no kernel
+    _assert_close(got, ref, textured=name != 'cornell')
+
+
+@pytest.mark.parametrize('name', ['cornell', 'cornell_textured'])
+def test_explicit_ray_head_equals_primary(name):
+    '''fused_trace fed fused_trace_primary's own camera rays (lens
+    jitter from rows 0-1) and wanghash2(i, j) makes the same uniforms and
+    so the same radiance, bit for bit.'''
+    _, ts = _pair(name)
+    res = 16
+    pt = sobol_block(6, PATH_DIMS)
+    ii, jj = pixel_grid(res, res, device='cpu')
+    u = torch.remainder(pt[:, None] + pixel_rotation(ii, jj, PATH_DIMS),
+                        1.0)
+    x = (ii.to(torch.float32) + u[0]) / res * 2.0 - 1.0
+    y = (jj.to(torch.float32) + u[1]) / res * 2.0 - 1.0
+    ro, rd = camera_rays(ts.cam_v2w, x, y)
+    base = wanghash2(ii, jj).to(torch.int32)
+    got = fused.fused_trace(ts, ro, rd, pt, base)
+    ref = fused.fused_trace_primary(ts, pt, res, res)
+    for k in 'xyz':
+        assert torch.equal(getattr(got, k), getattr(ref, k))
+    assert bool(torch.isfinite(got.x).all()) and got.x.any()
 
 
 @pytest.mark.parametrize('name,res', [('envlight', 16), ('matball', 12)])

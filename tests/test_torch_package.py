@@ -147,8 +147,8 @@ def test_card_default_has_no_cpu_fallback():
 # ROADMAP.md's "Do not port": the reference's TPU-only public names (the
 # Pallas casts, whose port is intersect/dense_cast.py; the MXU chunking of
 # the hit contract; the blocked cast's VMEM / SMEM tiling; the
-# megakernel's VMEM caps, tile rows, one-hot switch, interpret plumbing
-# and its explicit-ray head)
+# megakernel's VMEM caps, tile rows, one-hot switch and interpret
+# plumbing)
 DO_NOT_PORT = {
     'intersect/pallas_cast.py': None,
     'intersect/plucker.py': {
@@ -159,11 +159,10 @@ DO_NOT_PORT = {
     'intersect/blocked.py': {
         'BLOCKED_TR', 'CAND_BITS', 'CAND_MASK', 'EXIT_ROUND',
         'MAX_BLOCKED_VMEM_FACES', 'SMEM_CAND_BUDGET', 'T5_ROWS',
-        'TILES_PER_CALL', 'blocked_cast_closest', 'blocked_tables'},
+        'TILES_PER_CALL', 'blocked_tables'},
     'engine/fused.py': {
         'MAX_FUSED_TEX_BINDINGS', 'MAX_FUSED_TEX_BYTES',
-        'ONEHOT_FETCH_MIN_MATERIALS', 'RG', 'fused_trace',
-        'fused_trace_diff_interp'},
+        'ONEHOT_FETCH_MIN_MATERIALS', 'RG', 'fused_trace_diff_interp'},
 }
 
 
