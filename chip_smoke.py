@@ -17,7 +17,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero
 without the final line):
 
   1. device   — require CUDA, print the card's name and power limit,
-                disable TF32.
+                disable TF32; count the lanes where CUDA's torch.sqrt
+                and the port's mathutils.sqrt (on the card and on the
+                host) differ from the float64 root rounded to float32,
+                on 2^20 float32 values (normal, subnormal, [0.01, 100]
+                and the special values): [sqrt], 0 each or exit non-zero.
   2. build    — compile the three kernel libraries (csrc/dense_cast.cu,
                 csrc/fused_path.cu and csrc/blocked_cast.cu) for sm_90a,
                 three nvcc processes at once; print each kernel's ptxas
@@ -83,17 +87,19 @@ without the final line):
                 head beside the primary head at 512^2.  Each kernel's
                 bound: the least time the card could take for its work on
                 those inputs, the larger of its FP32 operations over 67
-                TFLOP/s and its bytes over 3.35 TB/s.  A flat cast needs
-                the sign test's 29 operations on each pair and 7 more on
-                each pair that passes it (counted with the plain version
-                on the timed rays): the closest cast every ray against
-                every face, the occlusion cast a ray's faces up to its
-                first occluder.  A tree kernel's pairs (36 operations
-                each) are the
-                live faces of the leaves of its box tree a ray must enter
-                (blocked.leaf_pairs): on the timed rays, and for the
-                megakernel and the dense tree casts on the rays of each
-                bounce of the twin (path_trace's lanes), beside the
+                TFLOP/s and its bytes over 3.35 TB/s, and beside it its
+                no-contraction ceiling (the same operations as
+                instructions at 33.5e12 a second).  Every kernel needs the
+                sign test's 29 operations on each pair its rays need and
+                7 more on each of them that passes the test (both counted
+                with the plain arithmetic, plucker.pair_side's, on the
+                same rays).  A flat cast needs every ray against every
+                face (closest) or a ray's faces up to its first occluder
+                (any_flat).  A tree kernel's pairs are the live faces of
+                the leaves of its box tree a ray must enter (the slab
+                test of blocked.leaf_pairs): on the timed rays, and for
+                the megakernel and the dense tree casts on the rays of
+                each bounce of the twin (path_trace's lanes), beside the
                 all-faces count; for the megakernel also the pairs the
                 same rays need on trees over index and Morton order.
                 Beside each bound the tree nodes and leaves the kernels
@@ -279,7 +285,7 @@ from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     _quad, _uv_sphere, _sphere_smooth_normals,
                                     _sphere_uvs, _CORNELL_MATERIALS_SPEC)
 from ptina_tpu_torch.utils.daemon import DaemonModule
-from ptina_tpu_torch.utils.mathutils import INF
+from ptina_tpu_torch.utils.mathutils import INF, sqrt as port_sqrt
 from ptina_tpu_torch.utils.kernel_report import (ptxas_by_kernel, sass,
                                                  face_loop_path)
 from ptina_tpu_torch.utils.trace import set_verbosity
@@ -328,20 +334,20 @@ PATH_AGREE = 0.95
 # FP32 outside the tensor cores, and HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# FP32 operations of one ray-face pair (csrc/plucker.cuh:face_hit): U and
-# V 6 products + 5 sums each, B 3 + 2, An 3 + 3, W 2, An * B 1; the
+# FP32 operations of one ray-face pair (csrc/plucker.cuh), for every
+# kernel: the sign test (face_side: U and V 6 products + 5 sums each, B
+# 3 + 2, W 2), which every pair the rays need takes, and face_t (An 3 +
+# 3, An * B 1), which only a pair that passes the sign test takes; the
 # reciprocal and product of t only for valid pairs, not counted
-FLOPS_PER_PAIR = 36
-# of those, the sign test's (face_side: U, V, B, W), which every pair
-# needs; An and An * B (face_t) only a pair that passes it needs
 FLOPS_SIDE = 29
-FLOPS_T = FLOPS_PER_PAIR - FLOPS_SIDE
+FLOPS_T = 7
 # the card's FP32 instruction rate: 67 TFLOP/s counts a fused multiply-add
 # as two operations; the kernels are built without contraction
-# (--fmad=false), so each operation is one instruction, and the flat
-# casts' needed operations over this rate are their no-contraction
-# ceiling
+# (--fmad=false), so each operation is one instruction, and a kernel's
+# needed operations over this rate are its no-contraction ceiling
 PEAK_FP32_INSTR = PEAK_FLOPS / 2
+# the [sqrt] check's float32 values
+SQRT_VALUES = 1 << 20
 KERNEL_SOURCE = 'ptina_tpu_torch/csrc/dense_cast.cu'
 PATH_SOURCE = 'ptina_tpu_torch/csrc/fused_path.cu'
 BLOCKED_SOURCE = 'ptina_tpu_torch/csrc/blocked_cast.cu'
@@ -402,6 +408,54 @@ def phase_device():
           f'python {sys.version.split()[0]} devices '
           f'{torch.cuda.device_count()}')
     return card
+
+
+def _sqrt_values(n):
+    '''n float32 values from a seed: a quarter positive normals over every
+    exponent, a quarter subnormals, a quarter in [0.01, 100] (where the
+    shading and the face tables live), then the special values (0, -0, a
+    negative, the infinities, NaN, 1 +- ulp, the largest finite float)
+    and standard normals.'''
+    rng = np.random.default_rng(13)
+    q = n // 4
+
+    def bits(lo, hi):
+        return rng.integers(lo, hi, q, dtype=np.int64).astype(
+            np.uint32).view(np.float32)
+    one, big = np.float32(1.0), np.finfo(np.float32).max
+    special = np.array([0.0, -0.0, -1.0, -np.inf, np.inf, np.nan, big, one,
+                        np.nextafter(one, np.float32(2.0)),
+                        np.nextafter(one, np.float32(0.0))], np.float32)
+    rest = rng.standard_normal(n - 3 * q - special.size).astype(np.float32)
+    return np.concatenate([bits(0x00800000, 0x7f800000),
+                           bits(1, 0x00800000),
+                           rng.uniform(0.01, 100.0, q).astype(np.float32),
+                           special, rest])
+
+
+def phase_sqrt(card):
+    '''[sqrt]: the lanes where CUDA's torch.sqrt and the port's
+    mathutils.sqrt, on the card and on the host, differ from the float64
+    root rounded to float32 (numpy's, on the host; a NaN lane agrees with
+    any NaN).  Raises unless every count is 0: the kernels' sqrtf, their
+    plain twins on the card and the CPU tests all assume IEEE roots.'''
+    x = _sqrt_values(SQRT_VALUES)
+    with np.errstate(invalid='ignore'):
+        want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    xd = torch.from_numpy(x).to(DEV)
+    got = {'torch.sqrt on the card': torch.sqrt(xd).cpu().numpy(),
+           'mathutils.sqrt on the card': port_sqrt(xd).cpu().numpy(),
+           'mathutils.sqrt on the host': port_sqrt(torch.from_numpy(x))
+           .numpy()}
+    nan = np.isnan(want)
+    bad = {k: int(np.where(nan, ~np.isnan(v),
+                           v.view(np.int32) != want.view(np.int32)).sum())
+           for k, v in got.items()}
+    print(f'[sqrt] {card} | {x.size} float32 values, lanes that differ '
+          f'from the float64 root rounded to float32: '
+          + ', '.join(f'{k} {v}' for k, v in bad.items()))
+    if any(bad.values()):
+        raise AssertionError(f'square roots not correctly rounded: {bad}')
 
 
 def phase_build():
@@ -1245,29 +1299,38 @@ def _flat_pairs(scene, rays):
             'any_flat': (int(need.sum()), any_passing)}
 
 
+def _work(total, passing):
+    """FP32 operations of `total` needed pairs, `passing` of them past the
+    sign test."""
+    return FLOPS_SIDE * total + FLOPS_T * passing
+
+
+def _ceiling(ops):
+    """The no-contraction ceiling of `ops` FP32 operations, ms."""
+    return ops / PEAK_FP32_INSTR * 1e3
+
+
 def _flat_bounds(scene, rays):
     """{flat dense kernel: (bound ms, bound_by), 'ceiling': {flat dense
     kernel: ms}, 'pairs': _flat_pairs} at these rays: the needed pairs'
-    FP32 operations (FLOPS_SIDE each, FLOPS_T more for each that passes
-    the sign test), each input read once, each output written once; the
-    ceiling is the same operations as instructions at PEAK_FP32_INSTR.
-    Also the tree casts' all-faces bounds, kept for the record (36
-    operations a pair): {'shade': ms, 'any': ms}."""
+    FP32 operations (_work), each input read once, each output written
+    once; the ceiling is the same operations as instructions
+    (_ceiling).  Also the tree casts' all-faces bounds, kept for the
+    record (every face for every ray, the closest cast's pairs):
+    {'shade': ms, 'any': ms}."""
     ro, rd, avoid, tmax = rays
     n, nf = ro.x.shape[0], int(scene.nfaces)
     pairs = _flat_pairs(scene, rays)
-    ops = {k: FLOPS_SIDE * total + FLOPS_T * passing
-           for k, (total, passing) in pairs.items()}
+    ops = {k: _work(*v) for k, v in pairs.items()}
     rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
     coef_b = 64 * nf
     hit_b = n * (4 + 4 + 1 + 4 + 4)  # t, index, hit, u, v
     flat = {'closest': _bound(ops['closest'], rays_b + coef_b + hit_b),
             'any_flat': _bound(ops['any_flat'],
                                rays_b + _nbytes(tmax) + coef_b + n),
-            'ceiling': {k: v / PEAK_FP32_INSTR * 1e3
-                        for k, v in ops.items()},
+            'ceiling': {k: _ceiling(v) for k, v in ops.items()},
             'pairs': pairs}
-    flops = FLOPS_PER_PAIR * n * nf
+    flops = ops['closest']
     all_faces = {'shade': _bound(flops, rays_b + coef_b + 72 * nf + hit_b
                                  + 24 * n)[0],
                  'any': _bound(flops, rays_b + _nbytes(tmax) + coef_b
@@ -1275,25 +1338,103 @@ def _flat_bounds(scene, rays):
     return flat, all_faces
 
 
+def _rows_dot(c, rows):
+    '''plucker._dot_rows on gathered pairs: sum_k rows[k] x c[..., k],
+    left to right, rows [M, 1] and c [M, L, K] -> [M, L].'''
+    acc = rows[0] * c[..., 0]
+    for k in range(1, len(rows)):
+        acc = acc + rows[k] * c[..., k]
+    return acc
+
+
+def _leaf_work(ro, rd, nf, ray, leaf, coef):
+    '''For (ray, leaf) entries ([M] each): ([M] live faces of the leaf,
+    [M] of them whose pair with the ray passes the sign test, or None
+    without coef).  coef holds the faces in the tree's slot order (leaf
+    l's are rows LEAF_FACES * l onward, live below nf); the sign test is
+    plucker.pair_side's arithmetic on the gathered pairs.'''
+    lf = blocked.LEAF_FACES
+    live = torch.clamp(nf - lf * leaf.long(), 0, lf)
+    if coef is None:
+        return live, None
+    feats = ray_features(ro, rd)
+    dirs = (rd.x, rd.y, rd.z)
+    passing = torch.zeros_like(live)
+    step = 1 << 15
+    for s in range(0, ray.numel(), step):
+        r, sl = ray[s:s + step], slice(s, s + step)
+        slot = leaf[sl, None].long() * lf + torch.arange(lf, device=DEV)
+        c = coef[torch.clamp_max(slot, coef.shape[0] - 1)]  # [m, lf, 16]
+        p = [f[r][:, None] for f in feats]
+        u = _rows_dot(c[..., 0:6], p)
+        v = _rows_dot(c[..., 6:12], p)
+        b = _rows_dot(c[..., 12:15], [d[r][:, None] for d in dirs])
+        w = b - u - v
+        bi = b.view(torch.int32)
+        side = ((u.view(torch.int32) ^ bi) | (v.view(torch.int32) ^ bi)
+                | (w.view(torch.int32) ^ bi))
+        passing[sl] = ((side >= 0) & (slot < nf)).sum(1)
+    return live, passing
+
+
+def _tree_work(ro, rd, nodes, nf, t_stop, inclusive, coef=None):
+    '''blocked.leaf_pairs, and with coef (the faces in the tree's slot
+    order) also how many of those pairs pass the sign test: ([N] pairs,
+    [N] passing or None).'''
+    if coef is None:
+        return blocked.leaf_pairs(ro, rd, nodes, nf, t_stop, inclusive), None
+    p = nodes.shape[0] // 2
+    n = ro.x.shape[0]
+    pairs = torch.zeros(n, dtype=torch.int64, device=DEV)
+    passing = torch.zeros_like(pairs)
+    step = max(1, (1 << 22) // p)
+    for s in range(0, n, step):
+        sl = slice(s, s + step)
+        e = blocked.box_entries(V3(ro.x[sl], ro.y[sl], ro.z[sl]),
+                                V3(rd.x[sl], rd.y[sl], rd.z[sl]), nodes[p:])
+        ts = t_stop[sl, None]
+        enters = torch.isfinite(e) & ((e <= ts) if inclusive else (e < ts))
+        ray, leaf = enters.nonzero(as_tuple=True)
+        ray = ray + s
+        live, ok = _leaf_work(ro, rd, nf, ray, leaf, coef)
+        pairs.index_add_(0, ray, live)
+        passing.index_add_(0, ray, ok)
+    return pairs, passing
+
+
+def _cast_work(ro, rd, ro_sh, rd_sh, hit, occ, occluder, tmax, nodes, nf,
+               slot, coef=None):
+    '''The pairs two casts need on a box tree, ((closest pairs, passing),
+    (shadow pairs, passing)), [N] each (passing None without coef): the
+    closest cast the live faces of every leaf the ray enters at or before
+    its hit; the shadow ray, where occ, its nearest occluder's leaf (slot:
+    each face id's slot in the tree), else every leaf it enters before
+    min(tmax, INF).'''
+    inf = torch.full_like(hit.t, float('inf'))
+    closest = _tree_work(ro, rd, nodes, nf, torch.where(hit.hit, hit.t, inf),
+                         True, coef)
+    leaf = slot[torch.clamp_min(occluder, 0).long()] // blocked.LEAF_FACES
+    n = ro_sh.x.shape[0]
+    own = _leaf_work(ro_sh, rd_sh, nf, torch.arange(n, device=DEV), leaf,
+                     coef)
+    clear = _tree_work(ro_sh, rd_sh, nodes, nf, torch.clamp_max(tmax, 1e6),
+                       False, coef)
+    shadow = tuple(None if b is None else torch.where(occ, a, b)
+                   for a, b in zip(own, clear))
+    return closest, shadow
+
+
 def _tree_pairs(scene, ro, rd, avoid, tmax):
-    """The pair tests the dense tree casts need on these rays
-    (blocked.leaf_pairs over fused_nodes): the closest cast the live faces
-    of every leaf a ray enters at or before its hit; the occlusion cast
-    the nearest occluder's leaf if the ray is occluded, else every leaf
-    it enters before min(tmax, INF).  ([N], [N]) int64."""
-    nf, nodes = int(scene.nfaces), scene.fused_nodes
+    """The pair tests the dense tree casts need on these rays, over
+    fused_nodes (_cast_work with the shade kernel's hit as the nearest
+    occluder): ((closest pairs, passing), (shadow pairs, passing)), [N]
+    int64 each."""
     hit, _ = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
                                    scene.face_attr, *_dense_tree(scene))
-    inf = torch.full_like(hit.t, float('inf'))
-    closest = blocked.leaf_pairs(ro, rd, nodes, nf,
-                                 torch.where(hit.hit, hit.t, inf), True)
     slot = torch.argsort(scene.fused_order.long())  # of each face id
-    leaf = slot[torch.clamp_min(hit.index, 0).long()] // blocked.LEAF_FACES
-    live = torch.clamp(nf - blocked.LEAF_FACES * leaf, 0, blocked.LEAF_FACES)
-    occ = hit.hit & (hit.t < tmax)
-    shadow = torch.where(occ, live, blocked.leaf_pairs(
-        ro, rd, nodes, nf, torch.clamp_max(tmax, 1e6), False))
-    return closest, shadow
+    return _cast_work(ro, rd, ro, rd, hit, hit.hit & (hit.t < tmax),
+                      hit.index, tmax, scene.fused_nodes, int(scene.nfaces),
+                      slot, scene.fused_coef)
 
 
 def _visits_line(vis):
@@ -1305,13 +1446,21 @@ def _visits_line(vis):
             v[:n, 1].reshape(-1, 32).amax(1).mean().item())
 
 
-def _dense_bounds(card, name, scene, rays, lanes):
-    """{tree cast: (bound ms, bound_by)} at the timed rays, from the pairs
-    they need (_tree_pairs), the bytes each input read once and each
-    output written once; printed beside the all-faces count, the tree
-    nodes and leaves the kernels visit (dense_cast_visits), and, given the
-    wavefront's lanes, the pairs and visits of its own casts.  Returns
-    (bounds, {cast: visits line})."""
+def _bound_line(card, what, n, total, passing, b, ceil, tail=''):
+    print(f'[bound] {card} | {what}: needs {total / n:.2f} pairs a ray '
+          f'({total} in all, {passing} of them pass the sign test) -> '
+          f'{b[0]:.5f} ms by {b[1]}, no-contraction ceiling {ceil:.5f} ms'
+          f'{tail}')
+
+
+def _dense_bounds(card, name, scene, rays, lanes, all_faces):
+    """The tree casts' bounds at the timed rays: ({tree cast: (bound ms,
+    bound_by)}, {cast: ceiling ms}, {cast: (pairs, passing)}, {cast:
+    visits line}), from the pairs they need (_tree_pairs), the bytes each
+    input read once and each output written once; printed beside the
+    all-faces bound (all_faces, from _flat_bounds), the tree nodes and
+    leaves the kernels visit (dense_cast_visits), and, given the
+    wavefront's lanes, the pairs and visits of its own casts."""
     ro, rd, avoid, tmax = rays
     n, nf = ro.x.shape[0], int(scene.nfaces)
     c, at, tree = scene.face_coef, scene.face_attr, _dense_tree(scene)
@@ -1319,51 +1468,51 @@ def _dense_bounds(card, name, scene, rays, lanes):
     vis = dense_cast.dense_cast_visits(ro, rd, avoid, tmax, c, at, *tree)
     rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
     tree_b = _nbytes(*tree)
-    out, visits = {}, {}
-    for k, pairs, nbytes, v in (
+    out, ceil, pairs, visits = {}, {}, {}, {}
+    for k, work, nbytes, v in (
             ('shade', closest, rays_b + 136 * nf + tree_b + n * (17 + 24),
              vis[0]),
             ('any', shadow, rays_b + _nbytes(tmax) + tree_b + n, vis[1])):
-        total = int(pairs.sum())
-        out[k] = _bound(FLOPS_PER_PAIR * total, nbytes)
+        pairs[k] = tuple(int(x.sum()) for x in work)
+        ops = _work(*pairs[k])
+        out[k], ceil[k] = _bound(ops, nbytes), _ceiling(ops)
         visits[k] = _visits_line(v)
-        print(f'[bound] {card} | {k}_kernel {name} {n} random rays: needs '
-              f'{total / n:.2f} pairs a ray ({total} in all) -> '
-              f'{out[k][0]:.5f} ms by {out[k][1]} [all {nf} faces: '
-              f'{_bound(FLOPS_PER_PAIR * n * nf, nbytes)[0]:.5f} ms]')
+        _bound_line(card, f'{k}_kernel {name} {n} random rays', n,
+                    *pairs[k], out[k], ceil[k],
+                    f' [all {nf} faces: {all_faces[k]:.5f} ms]')
         print(f'[visits] {card} | {k}_kernel {name} {n} random rays: '
               f'{visits[k][0]:.2f} inner nodes, {visits[k][1]:.3f} leaves '
               f'({blocked.LEAF_FACES * visits[k][1]:.1f} face slots) a '
               f'ray, a warp\'s slowest ray {visits[k][2]:.2f} leaves')
     if lanes is None:
-        return out, visits
-    casts = {'shade': [0, 0, 0.0, 0.0], 'any': [0, 0, 0.0, 0.0]}
+        return out, ceil, pairs, visits
+    casts = {'shade': [0, 0, 0, 0.0, 0.0], 'any': [0, 0, 0, 0.0, 0.0]}
     for _, k, made, wrays in _wavefront_batches(lanes):
-        pairs = _tree_pairs(scene, *wrays)[k != 'shade']
+        work = _tree_pairs(scene, *wrays)[k != 'shade']
         v = dense_cast.dense_cast_visits(*wrays, c, at, *tree)[k != 'shade']
         v = v.float()
         casts[k][0] += int(made.sum())
-        casts[k][1] += int(pairs[made].sum())
-        casts[k][2] += v[made, 0].sum().item()
-        casts[k][3] += v[made, 1].sum().item()
-    for k, (m, pairs, inner, leaves) in casts.items():
+        casts[k][1] += int(work[0][made].sum())
+        casts[k][2] += int(work[1][made].sum())
+        casts[k][3] += v[made, 0].sum().item()
+        casts[k][4] += v[made, 1].sum().item()
+    for k, (m, total, passing, inner, leaves) in casts.items():
         print(f'[bound] {card} | {k}_kernel {name} wavefront {RES}x{RES} '
               f'sample 9, {m} casts in {DEPTH} bounces: needs '
-              f'{pairs / m:.2f} pairs a cast [all {nf} faces]; the kernel '
-              f'visits {inner / m:.2f} inner nodes and {leaves / m:.3f} '
-              f'leaves a cast ({blocked.LEAF_FACES * leaves / m:.1f} face '
-              f'slots)')
-    return out, visits
+              f'{total / m:.2f} pairs a cast ({passing / m:.3f} passing '
+              f'the sign test) [all {nf} faces]; the kernel visits '
+              f'{inner / m:.2f} inner nodes and {leaves / m:.3f} leaves a '
+              f'cast ({blocked.LEAF_FACES * leaves / m:.1f} face slots)')
+    return out, ceil, pairs, visits
 
 
 def _blocked_bounds(card, scene, rays):
-    '''{blocked kernel: (bound ms, bound_by)} at these rays, from the
-    pairs they need (blocked.leaf_pairs, the kernels' slab test in torch):
-    the closest cast the live faces of every leaf a ray enters at or
-    before its hit; the occlusion cast, for a ray that is occluded, its
-    nearest occluder's leaf, and for a clear one every leaf it enters
-    before min(tmax, INF).  Prints them beside the tree nodes and leaves
-    the kernels visit (their own counters).'''
+    '''{blocked kernel: (bound ms, bound_by), 'ceiling': {kernel: ms},
+    'pairs': {kernel: (pairs, passing)}} at these rays, from the pairs
+    they need on the scene's tree (_cast_work with the shade kernel's
+    hit as the nearest occluder; the faces are in tree order already).
+    Prints them beside the tree nodes and leaves the kernels visit (their
+    own counters).'''
     ro, rd, avoid, tmax = rays
     tables = (scene.face_coef, scene.face_attr, scene.block_bounds,
               scene.node_bounds)
@@ -1371,34 +1520,27 @@ def _blocked_bounds(card, scene, rays):
     nf, n = int(scene.nfaces), ro.x.shape[0]
     hit, _ = blocked.blocked_cast_shade(ro, rd, avoid, *tables)
     occ = blocked.blocked_cast_any(ro, rd, avoid, tmax, c, bb, nb)
-    inf = torch.full_like(hit.t, float('inf'))
-    shade_pairs = blocked.leaf_pairs(ro, rd, nb, nf,
-                                     torch.where(hit.hit, hit.t, inf), True)
-    leaf = torch.clamp_min(hit.index, 0) // blocked.LEAF_FACES
-    leaf_live = torch.clamp(nf - blocked.LEAF_FACES * leaf, 0,
-                            blocked.LEAF_FACES)
-    any_pairs = torch.where(
-        occ, leaf_live.to(torch.int64),
-        blocked.leaf_pairs(ro, rd, nb, nf, torch.clamp_max(tmax, 1e6),
-                           False))
+    slot = torch.arange(c.shape[0], device=DEV)
+    shade, any_ = _cast_work(ro, rd, ro, rd, hit, occ, hit.index, tmax, nb,
+                             nf, slot, c)
     vis = blocked.blocked_cast_visits(ro, rd, avoid, tmax, *tables)
     rays_b = _nbytes(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, avoid)
     tree_b = _nbytes(nb)
-    out = {}
-    for k, pairs, nbytes, v in (
-            ('blocked_shade', shade_pairs,
+    out = {'ceiling': {}, 'pairs': {}}
+    for k, work, nbytes, v in (
+            ('blocked_shade', shade,
              rays_b + 136 * nf + tree_b + n * (17 + 24), vis[0]),
-            ('blocked_any', any_pairs,
+            ('blocked_any', any_,
              rays_b + _nbytes(tmax) + 64 * nf + tree_b + n, vis[1])):
-        total = int(pairs.sum())
-        out[k] = _bound(FLOPS_PER_PAIR * total, nbytes)
+        out['pairs'][k] = tuple(int(x.sum()) for x in work)
+        ops = _work(*out['pairs'][k])
+        out[k], out['ceiling'][k] = _bound(ops, nbytes), _ceiling(ops)
         v = v.float().mean(0)
-        print(f'[bound] {card} | {k:<13} cornell_highpoly {n} rays: needs '
-              f'{total / n:.2f} pairs a ray ({total} in all) -> '
-              f'{out[k][0]:.5f} ms by {out[k][1]}; the kernel visits '
-              f'{v[0].item():.2f} inner nodes and {v[1].item():.3f} '
-              f'leaves a ray ({blocked.LEAF_FACES * v[1].item():.1f} face '
-              f'slots)')
+        _bound_line(card, f'{k:<13} cornell_highpoly {n} rays', n,
+                    *out['pairs'][k], out[k], out['ceiling'][k],
+                    f'; the kernel visits {v[0].item():.2f} inner nodes '
+                    f'and {v[1].item():.3f} leaves a ray '
+                    f'({blocked.LEAF_FACES * v[1].item():.1f} face slots)')
     return out
 
 
@@ -1411,42 +1553,55 @@ def _occluders(scene, lanes):
             for lane in lanes]
 
 
-def _needed_pairs(scene, lanes, occluders, nodes, order):
+def _needed_pairs(scene, lanes, occluders, nodes, order, side=False):
     '''The pair tests the megakernel's casts need on a box tree (nodes,
-    over the faces in `order`, a numpy permutation), per bounce
-    on the twin's rays (path_trace's lanes), by blocked.leaf_pairs: a
-    closest cast the live faces of every leaf it enters at or before its
-    hit; a shadow ray its nearest occluder's leaf if occluded, else every
-    leaf it enters before min(tmax, INF).  [(closest, shadow)] totals.'''
+    over the faces in `order`, a numpy permutation), per bounce on the
+    twin's rays (path_trace's lanes), by _cast_work: [((closest pairs,
+    passing), (shadow pairs, passing))] totals over the live lanes; the
+    passing counts (the sign test) only with side, else None.'''
     nf = int(scene.nfaces)
-    inf = torch.tensor(float('inf'), device=DEV)
+    coef = scene.face_coef[torch.as_tensor(order, device=DEV)] \
+        if side else None
     slot = torch.as_tensor(np.argsort(order), device=DEV)  # of each face id
     out = []
     for lane, occluder in zip(lanes, occluders):
-        hit = lane['hit']
-        closest = blocked.leaf_pairs(lane['ro'], lane['rd'], nodes, nf,
-                                     torch.where(hit.hit, hit.t, inf), True)
-        leaf = slot[torch.clamp_min(occluder, 0).long()] \
-            // blocked.LEAF_FACES
-        live = torch.clamp(nf - blocked.LEAF_FACES * leaf, 0,
-                           blocked.LEAF_FACES)
-        shadow = torch.where(
-            lane['occ'], live,
-            blocked.leaf_pairs(lane['ro_sh'], lane['rd_sh'], nodes, nf,
-                               torch.clamp_max(lane['tmax'], 1e6), False))
-        out.append((int(closest[lane['alive']].sum()),
-                    int(shadow[lane['shadow']].sum())))
+        closest, shadow = _cast_work(
+            lane['ro'], lane['rd'], lane['ro_sh'], lane['rd_sh'],
+            lane['hit'], lane['occ'], occluder, lane['tmax'], nodes, nf,
+            slot, coef)
+        out.append(tuple(
+            tuple(None if x is None else int(x[live].sum()) for x in work)
+            for work, live in ((closest, lane['alive']),
+                               (shadow, lane['shadow']))))
     return out
 
 
+def _all_faces_passing(scene, lanes):
+    '''Of every live face against every cast of these lanes (the closest
+    casts of the live paths and the shadow rays), the pairs that pass the
+    sign test (plucker.pair_side).'''
+    nf = int(scene.nfaces)
+    coef = scene.face_coef[:nf]
+    passing = 0
+    for lane in lanes:
+        for ro, rd, live in ((lane['ro'], lane['rd'], lane['alive']),
+                             (lane['ro_sh'], lane['rd_sh'], lane['shadow'])):
+            p, fc = ray_features(ro, rd), face_chunk(ro.x.shape[0], nf)
+            for base in range(0, nf, fc):
+                side = pair_side(p, rd, coef[base:base + fc])[0]
+                passing += int(((side >= 0) & live[:, None]).sum())
+    return passing
+
+
 def _path_bound(card, name, scene):
-    '''((bound ms, bound_by), all-faces bound ms) of the megakernel's
-    sample 9 at 512^2.  The bound counts the pairs these paths need on
-    the scene's tree (_needed_pairs, the twin's rays on the same
-    uniforms) and the bytes of the face, tree and texture tables and the
-    radiance rows; the all-faces bound, kept for the record, every live
-    face for every cast.  Prints both, beside the pairs the same rays
-    would need on trees over index order and plain Morton order.'''
+    '''((bound ms, bound_by), all-faces bound ms, ceiling ms, (pairs,
+    passing)) of the megakernel's sample 9 at 512^2.  The bound counts
+    the pairs these paths need on the scene's tree (_needed_pairs, the
+    twin's rays on the same uniforms) and the bytes of the face, tree
+    and texture tables and the radiance rows; the all-faces bound, kept
+    for the record, every live face for every cast.  Prints both, beside
+    the pairs the same rays would need on trees over index order and
+    plain Morton order.'''
     lanes = []
     fused.fused_trace_primary_plain(scene, sobol_block(9, DIMS), RES, RES,
                                     lanes=lanes)
@@ -1455,37 +1610,42 @@ def _path_bound(card, name, scene):
     nf, f = int(scene.nfaces), scene.face_coef.shape[0]
     occluders = _occluders(scene, lanes)
     needed = _needed_pairs(scene, lanes, occluders, scene.fused_nodes,
-                           scene.fused_order.cpu().numpy())
-    pairs = sum(c + s for c, s in needed)
+                           scene.fused_order.cpu().numpy(), side=True)
+    pairs = sum(c[0] + s[0] for c, s in needed)
+    passing = sum(c[1] + s[1] for c, s in needed)
+    ops = _work(pairs, passing)
     tree_b = _nbytes(scene.fused_nodes, scene.fused_order) + 64 * nf
-    b = _bound(FLOPS_PER_PAIR * pairs, 136 * nf + tree_b
-               + _nbytes(scene.textures.data) + 12 * N_FULL)
-    all_faces = _bound(FLOPS_PER_PAIR * nf * (sum(alive) + sum(shadow)),
+    b = _bound(ops, 136 * nf + tree_b + _nbytes(scene.textures.data)
+               + 12 * N_FULL)
+    casts = sum(alive) + sum(shadow)
+    all_faces = _bound(_work(nf * casts, _all_faces_passing(scene, lanes)),
                        136 * nf + _nbytes(scene.textures.data)
                        + 12 * N_FULL)[0]
-    casts = sum(alive) + sum(shadow)
     print(f'[bound] {card} | path_kernel {name} {RES}x{RES}: paths per '
-          f'bounce {alive}, shadow rays {shadow}; needs {pairs} pairs '
-          f'({pairs / casts:.2f} a cast; per bounce closest/shadow '
-          f'{needed}) -> {b[0]:.5f} ms by {b[1]} [all {nf} faces every '
-          f'cast: {all_faces:.5f} ms]')
+          f'bounce {alive}, shadow rays {shadow}; needs {pairs} pairs, '
+          f'{passing} of them pass the sign test ({pairs / casts:.2f} a '
+          f'cast; per bounce (closest pairs, passing) / (shadow pairs, '
+          f'passing) {needed}) -> {b[0]:.5f} ms by {b[1]}, no-contraction '
+          f'ceiling {_ceiling(ops):.5f} ms [all {nf} faces every cast: '
+          f'{all_faces:.5f} ms]')
     pos = scene.tri_pos.cpu().numpy()
     pad = np.arange(nf, f)
+    closest_n = sum(c[0] for c, _ in needed)
+    shadow_n = sum(s[0] for _, s in needed)
     for order_name, order in (
             ('index', np.arange(f)),
             ('Morton', np.concatenate([morton_face_order(pos[:nf]), pad]))):
         nodes = torch.as_tensor(compute_node_bounds(pos[order], nf),
                                 device=DEV)
         other = _needed_pairs(scene, lanes, occluders, nodes, order)
+        oc, os_ = sum(c[0] for c, _ in other), sum(s[0] for _, s in other)
         print(f'[bound] {card} | path_kernel {name}: the same rays on a '
-              f'tree over {order_name} order need '
-              f'{sum(c + s for c, s in other) / casts:.2f} pairs a cast '
-              f'(closest {sum(c for c, _ in other) / sum(alive):.2f}, '
-              f'shadow {sum(s for _, s in other) / max(sum(shadow), 1):.2f}'
-              f'; the scene\'s order: closest '
-              f'{sum(c for c, _ in needed) / sum(alive):.2f}, shadow '
-              f'{sum(s for _, s in needed) / max(sum(shadow), 1):.2f})')
-    return b, all_faces
+              f'tree over {order_name} order need {(oc + os_) / casts:.2f}'
+              f' pairs a cast (closest {oc / sum(alive):.2f}, shadow '
+              f'{os_ / max(sum(shadow), 1):.2f}; the scene\'s order: '
+              f'closest {closest_n / sum(alive):.2f}, shadow '
+              f'{shadow_n / max(sum(shadow), 1):.2f})')
+    return b, all_faces, _ceiling(ops), (pairs, passing)
 
 
 def _path_visits(card, name, scene):
@@ -1670,10 +1830,10 @@ def phase_timings(card, scenes, tables, highpoly):
     '''The kernels' times and bounds, and the routes' samples/s.  Returns
     (kernel times {table: {kernel: times}}, megakernel times {scene:
     times}, bounds {table or 'path...': ...}, the rays head's ms {scene:
-    ms}); a dense table's bounds hold its tree casts' needed-pairs bounds,
-    their all-faces bounds ('all_faces'), their visits ('visits'), the
-    flat casts' bounds, their no-contraction ceilings ('ceiling') and
-    their needed pairs ('pairs').'''
+    ms}); a table's bounds hold its kernels' needed-pairs bounds, their
+    no-contraction ceilings ('ceiling') and their needed and passing
+    pairs ('pairs'), and a dense table's also the tree casts' all-faces
+    bounds ('all_faces') and visits ('visits').'''
     rng = np.random.RandomState(7)
     kt, bounds = {}, {}
     # the two cornells first, then highpoly, then the rest: the earlier
@@ -1691,8 +1851,11 @@ def phase_timings(card, scenes, tables, highpoly):
         kt[name] = _kernel_times(tables[name], rays, True)
         _print_kernel_times(card, name, N_FULL, kt[name])
         lanes = _lanes(tables[name]) if name in TREE_SCENES else None
-        tree, visits = _dense_bounds(card, name, tables[name], rays, lanes)
         flat_b, all_faces = _flat_bounds(tables[name], rays)
+        tree, ceil, pairs, visits = _dense_bounds(card, name, tables[name],
+                                                  rays, lanes, all_faces)
+        flat_b['ceiling'].update(ceil)
+        flat_b['pairs'].update(pairs)
         bounds[name] = {**tree, **flat_b, 'all_faces': all_faces,
                         'visits': visits}
         _flat_times(card, name, tables[name], rays, kt[name], bounds[name])
@@ -1700,6 +1863,8 @@ def phase_timings(card, scenes, tables, highpoly):
                    for name, scene in scenes.items()}
     bounds['path'] = {k: v[0] for k, v in path_bounds.items()}
     bounds['path_all_faces'] = {k: v[1] for k, v in path_bounds.items()}
+    bounds['path_ceiling'] = {k: v[2] for k, v in path_bounds.items()}
+    bounds['path_pairs'] = {k: v[3] for k, v in path_bounds.items()}
     bounds['path_visits'] = {name: _path_visits(card, name, scene)
                              for name, scene in scenes.items()}
     pk, rays_head = {}, {}
@@ -1838,16 +2003,21 @@ def _uniforms_bound(card, scene, ro, rd, x):
     path_trace(scene, ro, rd, x, lanes=lanes)
     nf, c = int(scene.nfaces), x.shape[1]
     needed = _needed_pairs(scene, lanes, _occluders(scene, lanes),
-                           scene.fused_nodes, scene.fused_order.cpu().numpy())
-    pairs = sum(a + b for a, b in needed)
+                           scene.fused_nodes, scene.fused_order.cpu().numpy(),
+                           side=True)
+    pairs = sum(a[0] + b[0] for a, b in needed)
+    passing = sum(a[1] + b[1] for a, b in needed)
     nbytes = (136 * nf + _nbytes(scene.fused_nodes, scene.fused_order)
               + 64 * nf + _nbytes(scene.textures.data)
               + 4 * c * (6 + x.shape[0] - 2) + 12 * c)
-    b = _bound(FLOPS_PER_PAIR * pairs, nbytes)
+    ops = _work(pairs, passing)
+    b = _bound(ops, nbytes)
     print(f'[bound] {card} | path_kernel uniforms head, MLT replay on '
-          f'cornell_monkey, {c} chains: needs {pairs} pairs (per bounce '
-          f'closest/shadow {needed}) -> {b[0]:.5f} ms by {b[1]}')
-    return b
+          f'cornell_monkey, {c} chains: needs {pairs} pairs, {passing} of '
+          f'them pass the sign test (per bounce (closest pairs, passing) / '
+          f'(shadow pairs, passing) {needed}) -> {b[0]:.5f} ms by {b[1]}, '
+          f'no-contraction ceiling {_ceiling(ops):.5f} ms')
+    return b, _ceiling(ops)
 
 
 def _mlt(card, scene):
@@ -1902,7 +2072,7 @@ def _mlt(card, scene):
     splat = _device_ms(lambda: film_splat(splat_film, 0, xi, yi, *w), reps=3)
     step_dev = _device_ms(lambda: mlt_step(scene, state, film), reps=3)
     syncs = _syncs(lambda: mlt_step(scene, state, film))
-    bound = _uniforms_bound(card, scene, ro, rd, x_new)
+    bound, ceiling = _uniforms_bound(card, scene, ro, rd, x_new)
     print(f'[engines] {card} | MLT cornell_monkey {RES}x{RES} film, '
           f'{MLT_CHAINS} chains, {MLT_STEPS} steps a round: launches a '
           f'round {grew["path"]} path_kernel and no cast; {mps:.1f} '
@@ -1923,7 +2093,8 @@ def _mlt(card, scene):
     if syncs:
         raise AssertionError(f'MLT step synchronises: {syncs[0]}')
     return dict(launches=launches, mps=mps, ms=rep, plain_ms=rep_plain,
-                call_ms=rep_call, bound=bound, step_ms=step_dev,
+                call_ms=rep_call, bound=bound, ceiling=ceiling,
+                step_ms=step_dev,
                 step_wall_ms=step_wall, splat_ms=splat, propose_ms=prop,
                 agree=bit)
 
@@ -3356,6 +3527,7 @@ def phase_frontends(card, scenes):
 
 def main():
     card = phase_device()
+    phase_sqrt(card)
     ptxas = phase_build()
     face_path = _print_face_path(card)
     scenes = {name: make() for name, (make, _) in SCENES.items()}
@@ -3444,16 +3616,25 @@ def main():
                      bounds[scene][k], **extra)
     # the tree casts: cornell_monkey's numbers, and every table's
     dense = [k for k in kt if k != 'cornell_highpoly']
+
+    def pair_keys(k):
+        '''A dense kernel's times, bounds, ceilings and needed and
+        passing pairs on every table.'''
+        return dict(
+            ms_by_scene={t: kt[t][k][0] for t in dense},
+            plain_ms_by_scene={t: kt[t][k][1] for t in dense},
+            call_ms_by_scene={t: kt[t][k][2] for t in dense},
+            bound_ms_by_scene={t: bounds[t][k][0] for t in dense},
+            ceiling_ms_by_scene={t: bounds[t]['ceiling'][k] for t in dense},
+            pairs_by_scene={t: bounds[t]['pairs'][k][0] for t in dense},
+            sign_pass_pairs_by_scene={t: bounds[t]['pairs'][k][1]
+                                      for t in dense})
     kernels = [cast_entry(
         k, KERNEL_SOURCE, counts['wavefront'][k], 'cornell_monkey',
-        ms_by_scene={t: kt[t][k][0] for t in dense},
-        plain_ms_by_scene={t: kt[t][k][1] for t in dense},
-        call_ms_by_scene={t: kt[t][k][2] for t in dense},
-        bound_ms_by_scene={t: bounds[t][k][0] for t in dense},
         bound_ms_all_faces_by_scene={t: bounds[t]['all_faces'][k]
                                      for t in dense},
         visits_by_scene={t: bounds[t]['visits'][k] for t in dense},
-        **engine_extra[k])
+        **pair_keys(k), **engine_extra[k])
         for k in ('shade', 'any')]
     m = eng['mlt']
     kernels.append(entry(
@@ -3463,11 +3644,16 @@ def main():
         plain_ms_by_scene={k: v[1] for k, v in pk.items()},
         bound_ms_by_scene={k: v[0] for k, v in bounds['path'].items()},
         bound_ms_all_faces_by_scene=bounds['path_all_faces'],
+        ceiling_ms_by_scene=bounds['path_ceiling'],
+        pairs_by_scene={k: v[0] for k, v in bounds['path_pairs'].items()},
+        sign_pass_pairs_by_scene={k: v[1] for k, v in
+                                  bounds['path_pairs'].items()},
         visits_per_cast_by_scene=bounds['path_visits'],
         launches_mlt=m['launches'], launches_mlt_step=m['launches'] / MLT_STEPS,
         uniforms_ms=m['ms'], uniforms_plain_ms=m['plain_ms'],
         uniforms_call_ms=m['call_ms'], uniforms_bound_ms=m['bound'][0],
-        uniforms_bound_by=m['bound'][1], uniforms_chains=MLT_CHAINS,
+        uniforms_bound_by=m['bound'][1], uniforms_ceiling_ms=m['ceiling'],
+        uniforms_chains=MLT_CHAINS,
         mlt_mutations_per_s=m['mps'], mlt_step_ms=m['step_ms'],
         mlt_step_wall_ms=m['step_wall_ms'],
         max_abs_err_worker=eng['worker_err'],
@@ -3485,23 +3671,19 @@ def main():
         ms_monkey=kt['cornell_monkey'][k][0],
         plain_ms_monkey=kt['cornell_monkey'][k][1],
         bound_ms_monkey=bounds['cornell_monkey'][k][0],
-        ms_by_scene={t: kt[t][k][0] for t in dense},
-        plain_ms_by_scene={t: kt[t][k][1] for t in dense},
-        call_ms_by_scene={t: kt[t][k][2] for t in dense},
-        bound_ms_by_scene={t: bounds[t][k][0] for t in dense},
-        ceiling_ms_by_scene={t: bounds[t]['ceiling'][k] for t in dense},
-        pairs_by_scene={t: bounds[t]['pairs'][k][0] for t in dense},
-        sign_pass_pairs_by_scene={t: bounds[t]['pairs'][k][1]
-                                  for t in dense},
+        **pair_keys(k),
         **({'sass_face_path_instructions': face_path}
            if k == 'closest' else {}))
         for k in ('closest', 'any_flat')]
     blocked_extra = {'blocked_shade': dict(
         launches_blocked_closest=counts['blocked_closest']['blocked_shade']),
         'blocked_any': {}}
+    hp = bounds['cornell_highpoly']
     kernels += [cast_entry(k, BLOCKED_SOURCE, counts['blocked'][k],
-                           'cornell_highpoly', **engine_extra[k],
-                           **blocked_extra[k])
+                           'cornell_highpoly', ceiling_ms=hp['ceiling'][k],
+                           pairs=hp['pairs'][k][0],
+                           sign_pass_pairs=hp['pairs'][k][1],
+                           **engine_extra[k], **blocked_extra[k])
                 for k in ('blocked_shade', 'blocked_any')]
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -11,7 +11,7 @@ the port's does not call it.
 import torch
 
 from ptina_tpu_torch.utils.mathutils import (PI, clamp, clamp_min, cross,
-                                             normalize, safe_sqrt)
+                                             normalize, safe_sqrt, sqrt)
 from ptina_tpu_torch.utils.vec import vspherical
 
 __all__ = ['schlick_fresnel', 'dielectric_fresnel', 'gtr1', 'gtr2',
@@ -91,7 +91,7 @@ def sample_gtr2_vnor(ve, u, v, alpha):
                                 ve[..., 2]], dim=-1))
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
     safe = lensq > 1e-12
-    inv = 1.0 / torch.sqrt(torch.where(safe, lensq, 1.0))
+    inv = 1.0 / sqrt(torch.where(safe, lensq, 1.0))
     t1 = torch.where(safe[..., None],
                      torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
                                   torch.zeros_like(inv)], dim=-1),

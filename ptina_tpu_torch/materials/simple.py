@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from ptina_tpu_torch.utils.mathutils import INF, clamp, clamp_min
+from ptina_tpu_torch.utils.mathutils import INF, clamp, clamp_min, sqrt
 from ptina_tpu_torch.utils.vec import (
     V3, vdot, vnormalize, vreflect, vspherical, vtanframe, vwhere,
 )
@@ -36,7 +36,7 @@ def lambert_eval(p, normal, sign, indir, outdir):
 
 def lambert_sample(p, normal, sign, indir, su, sv, sw):
     '''Cosine-hemisphere bounce: pdf 1/pi, throughput = basecolor.'''
-    outdir = _to_frame(normal, vspherical(torch.sqrt(su), sv))
+    outdir = _to_frame(normal, vspherical(sqrt(su), sv))
     pdf = torch.full_like(su, 1.0 / math.pi)
     return outdir, pdf, p['basecolor']
 

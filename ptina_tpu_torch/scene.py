@@ -50,6 +50,7 @@ from ptina_tpu_torch.intersect.blocked import (BLOCK_FACES, LEAF_FACES,
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.dispatch import route
 from ptina_tpu_torch.intersect.plucker import pack_faces
+from ptina_tpu_torch.utils.mathutils import sqrt
 
 __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'make_materials', 'make_lights', 'make_textures',
@@ -173,7 +174,7 @@ def precompute_tri_functionals(tri_pos):
     inv_nn = torch.where(ok, 1.0 / torch.where(ok, nn, 1.0), 0.0)
     gu = _cross(e2, n) * inv_nn[:, None]
     gv = _cross(n, e1) * inv_nn[:, None]
-    n = n * torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, nn, 1.0)),
+    n = n * torch.where(ok, 1.0 / sqrt(torch.where(ok, nn, 1.0)),
                         0.0)[:, None]
     return torch.stack([
         torch.cat([n, -_dot(n, v0)[:, None]], dim=-1),

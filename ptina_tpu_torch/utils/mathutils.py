@@ -31,15 +31,32 @@ __all__ = [
     'clamp', 'clamp_min', 'lerp', 'unlerp', 'smoothstep',
     'dot', 'dot_or_zero', 'norm', 'normalize', 'cross', 'vavg',
     'tanframe', 'tanspace', 'spherical', 'unspherical', 'dir2tex',
-    'reflect', 'refract', 'normaldist', 'safe_div', 'safe_sqrt',
+    'reflect', 'refract', 'normaldist', 'safe_div', 'safe_sqrt', 'sqrt',
 ]
+
+
+def sqrt(x):
+    '''The correctly rounded (IEEE) float32 square root, as jnp.sqrt and
+    np.sqrt give it; every square root of the port goes through here.
+    CUDA's sqrt is IEEE (and the kernels' sqrtf, built without fast math,
+    equals it), so a CUDA tensor keeps its dtype.  torch.sqrt on the CPU
+    is not correctly rounded on every host (its vectorised path can be
+    1 ulp off, in float64 too), so elsewhere the root is taken in float64
+    and rounded to the input's dtype.  That is exact for float32: the
+    root of a float32 in [2^2e, 2^2e+2) lies at least 2^(e-50) from every
+    float32 rounding midpoint (x - m^2 is a nonzero multiple of
+    2^(2e-48)), four float64 ulps, so a float64 root within 4 ulps rounds
+    to the right float32.'''
+    if x.device.type == 'cuda':
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def safe_sqrt(x):
     '''sqrt clamped at zero: 0 (never nan) where x <= 0 or x is nan,
     exactly as the reference's double-where form.'''
     m = x > 0.0
-    return torch.where(m, torch.sqrt(torch.where(m, x, 1.0)), 0.0)
+    return torch.where(m, sqrt(torch.where(m, x, 1.0)), 0.0)
 
 
 def clamp_min(x, lo):
@@ -180,7 +197,7 @@ def normaldist(samp):
     pc = _ERFINV_CENTRAL[0]
     for c in _ERFINV_CENTRAL[1:]:
         pc = pc * wc + c
-    wt = torch.sqrt(w) - 3.0
+    wt = sqrt(w) - 3.0
     pt = _ERFINV_TAIL[0]
     for c in _ERFINV_TAIL[1:]:
         pt = pt * wt + c
