@@ -68,9 +68,10 @@ without the final line):
                 rays: one blocked_shade launch, its Hit equal to
                 blocked_cast_shade's bit for bit.
   5. capacity — cornell_highpoly(nu=640, nv=240) (305,942 faces, 598
-                blocks): the 32-ray float64 oracle of bench.py:183-214
-                (>= 31 of 32 agree, t within 2e-3 relative), and a
-                256x256 x 2 spp render.
+                blocks): the 32-ray float64 oracle of root bench.py:183-214
+                (ptina_tpu_torch.bench.oracle_agreement; >= 31 of 32
+                agree, t within 2e-3 relative), and a 256x256 x 2 spp
+                render.
   6. golden   — 64x64 renders against tests/golden (cornell 64 spp,
                 cornell_monkey 96 spp) under tests/test_parity.py's
                 tolerances, through both dense routes; cornell_monkey
@@ -214,6 +215,24 @@ without the final line):
                 their PNGs decoded.  Prints the readers' seconds, the
                 time from load to the first image, samples/s and the
                 viewport rungs' ms.
+ 12. bench    — the port's benchmark, python -m ptina_tpu_torch.bench, as
+                a subprocess (its own timeout; it reuses the libraries
+                phase 2 built): exit 0 and exactly its eight metric lines,
+                in ptina_tpu_torch.bench.CONFIGS order (root bench.py's
+                metrics with the prefix torch_), each with a finite
+                positive value, unit, vs_baseline, device, route and the
+                timed window's launches equal to the route's
+                (expected_launches); its lines echoed as [bench] lines,
+                each value beside this script's number for the same cell
+                (the timings phase's median of 3, phase 8's MLT rate).
+                Then, in this process, one bench window (bench.time_render)
+                per megakernel configuration and the device time of the
+                same frames, each queued behind a spinning stream and
+                timed with CUDA events: the window's busy share; and one
+                window of cornell_highpoly, its host counters beside the
+                subprocess line's (bench.host_since); a CPU probe (a fixed
+                Python loop) at the phase's start and end, and before
+                the timings phase's highpoly route.
 
 The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
@@ -221,7 +240,9 @@ plain version, its time, its plain version's time, its bound and what
 sets it, and library_ms, null: no single PyTorch call computes a ray-face
 closest hit, occlusion or path; launches_grad_* its launches in one
 gradient call of phase 9; launches_scale its launches in each item of
-phase 10; launches_frontends its launches in each item of phase 11) and
+phase 10; launches_frontends its launches in each item of phase 11;
+launches_bench / launches_bench_all its launches in each bench line's
+timed window / in all of that metric's work, where it has any) and
 {"ok": true, "device": {...}}.
 Imports nothing of JAX or ptina_tpu.
 '''
@@ -229,6 +250,7 @@ Imports nothing of JAX or ptina_tpu.
 import base64
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -244,6 +266,10 @@ import numpy as np
 import torch
 
 from ptina_tpu_torch import intersect, worker
+from ptina_tpu_torch.bench import (CONFIGS as BENCH_CONFIGS, bench_texture,
+                                   card_line, check_launches,
+                                   expected_launches, oracle_agreement,
+                                   time_render)
 from ptina_tpu_torch.blender import (PRINCIPLED_SOCKETS, RENDER_PASSES,
                                      ViewportRefiner, light_to_pool_entry,
                                      principled_to_material, sync_worker,
@@ -358,34 +384,20 @@ REPLACES = {'shade': 'ptina_tpu/intersect/pallas_cast.py:69',
             'path': 'ptina_tpu/engine/fused.py:648',
             'blocked_shade': 'ptina_tpu/intersect/blocked.py:388',
             'blocked_any': 'ptina_tpu/intersect/blocked.py:462'}
-def _bench_texture():
-    '''The reference benchmark's 64x64 grey ramp (bench.py:149-151).'''
-    return (np.linspace(0, 1, 64 * 64, dtype=np.float32)
-            .reshape(64, 64, 1) * np.ones((1, 1, 3), np.float32))
-
-
 # the five megakernel-eligible benchmark scenes (bench.py:224-256):
 # name -> (scene function, compared relative to max(|ref|, 0.05)?)
 SCENES = {
     'cornell': (lambda: cornell_box(device=DEV), False),
     'cornell_monkey': (lambda: cornell_monkey(device=DEV), False),
     'cornell_textured': (lambda: cornell_box(
-        textured_image=_bench_texture(), device=DEV), True),
+        textured_image=bench_texture(), device=DEV), True),
     'envlight': (lambda: envlight_scene(device=DEV), True),
-    'matball': (lambda: matball(roughness_tex=_bench_texture(),
+    'matball': (lambda: matball(roughness_tex=bench_texture(),
                                 device=DEV), True),
 }
 WAVEFRONT_SCENES = tuple(SCENES)
 # the dense scenes whose tree has inner nodes: the wavefront-ray bound
 TREE_SCENES = ('cornell_monkey', 'envlight', 'matball')
-
-
-def card_line():
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _tree(scene):
@@ -996,48 +1008,6 @@ def _drive_blocked_closest(highpoly):
 
 # ---------------------------------------------------------------- phase 5
 
-def _oracle_agreement(scene, n=32):
-    '''bench.py:183-214: the blocked kernel's t for n rays from inside the
-    box against a float64 Moller-Trumbore over the live faces; a miss
-    agrees with t >= 1e6.'''
-    rng = np.random.default_rng(0)
-    ron = (rng.uniform(-1.5, 1.5, (n, 3)) + [0, 1.5, 0]).astype(np.float32)
-    dn = rng.normal(0, 1, (n, 3)).astype(np.float32)
-    dn /= np.linalg.norm(dn, axis=1, keepdims=True)
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=DEV)
-    hit, _ = blocked.blocked_cast_shade(
-        V3(t(ron[:, 0]), t(ron[:, 1]), t(ron[:, 2])),
-        V3(t(dn[:, 0]), t(dn[:, 1]), t(dn[:, 2])),
-        torch.full((n,), -1, dtype=torch.int32, device=DEV),
-        scene.face_coef, scene.face_attr, scene.block_bounds,
-        scene.node_bounds)
-    got_t = hit.t.cpu().numpy()
-    tp = scene.tri_pos[:int(scene.nfaces)].cpu().numpy().astype(np.float64)
-    v0, e1, e2 = tp[:, 0], tp[:, 1] - tp[:, 0], tp[:, 2] - tp[:, 0]
-    agree = 0
-    for r in range(n):
-        o, d = ron[r].astype(np.float64), dn[r].astype(np.float64)
-        p = np.cross(d, e2)
-        det = np.einsum('fc,fc->f', e1, p)
-        ok = np.abs(det) > 1e-300
-        inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
-        tv = o - v0
-        u = np.einsum('fc,fc->f', tv, p) * inv
-        q = np.cross(tv, e1)
-        v = np.einsum('c,fc->f', d, q) * inv
-        tt = np.einsum('fc,fc->f', e2, q) * inv
-        tt = np.where(ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (tt > 0),
-                      tt, np.inf)
-        t64 = tt.min()
-        if np.isfinite(t64):
-            agree += abs(got_t[r] - t64) < 2e-3 * t64
-        else:
-            agree += got_t[r] >= 1e6
-    return int(agree)
-
-
 def phase_capacity():
     '''The reference benchmark's capacity check (bench.py:173-216): a
     ~306k-face scene, its float64 oracle and a small render.'''
@@ -1047,7 +1017,7 @@ def phase_capacity():
     print(f'[capacity] cornell_highpoly(nu=640, nv=240): {int(scene.nfaces)} '
           f'faces, {f} padded, {nb} blocks, {_tree(scene)}, built in '
           f'{time.perf_counter() - t0:.2f} s')
-    agree = _oracle_agreement(scene)
+    agree = oracle_agreement(scene)
     print(f'[capacity] 32 rays against the float64 oracle: {agree}/32 agree '
           f'(t within 2e-3 relative; >= 31)')
     if agree < 31:
@@ -1765,7 +1735,8 @@ def _sps(run, spp=SPP):
 
 
 def _print_route(card, name, route, scene, spp, run, use_fused, names=None):
-    '''samples/s, busy share and synchronisations of one scene's route.'''
+    '''samples/s, busy share and synchronisations of one scene's route;
+    returns the samples/s.'''
     dt, sps = _sps(run, spp)
     print(f'[timing] {card} | render {name} {route} {RES}x{RES} x '
           f'{spp} spp: median {dt:.4f} s of 3 -> {sps:.3f} '
@@ -1784,6 +1755,7 @@ def _print_route(card, name, route, scene, spp, run, use_fused, names=None):
     print(f'[timing] {name} {route}: {len(r["syncs"])} host-device '
           f'synchronisations in one sample'
           + (f'; first: {r["syncs"][0]}' if r['syncs'] else ''))
+    return sps
 
 
 def _print_kernel_times(card, name, n, times):
@@ -1830,10 +1802,11 @@ def phase_timings(card, scenes, tables, highpoly):
     '''The kernels' times and bounds, and the routes' samples/s.  Returns
     (kernel times {table: {kernel: times}}, megakernel times {scene:
     times}, bounds {table or 'path...': ...}, the rays head's ms {scene:
-    ms}); a table's bounds hold its kernels' needed-pairs bounds, their
-    no-contraction ceilings ('ceiling') and their needed and passing
-    pairs ('pairs'), and a dense table's also the tree casts' all-faces
-    bounds ('all_faces') and visits ('visits').'''
+    ms}, samples/s {(scene, route): median of 3}); a table's bounds hold
+    its kernels' needed-pairs bounds, their no-contraction ceilings
+    ('ceiling') and their needed and passing pairs ('pairs'), and a dense
+    table's also the tree casts' all-faces bounds ('all_faces') and visits
+    ('visits').'''
     rng = np.random.RandomState(7)
     kt, bounds = {}, {}
     # the two cornells first, then highpoly, then the rest: the earlier
@@ -1877,17 +1850,20 @@ def phase_timings(card, scenes, tables, highpoly):
               f'CUDA casts) {plain:.4f} ms/sample (x{plain / ms:.1f}); per '
               f'call with launch {call:.4f} ms; explicit-ray head '
               f'(fused_trace) {rays_head[name]:.4f} ms/sample')
+    sps = {}
     for name, scene in scenes.items():
-        _print_route(card, name, 'megakernel', scene, SPP,
-                     lambda f, sc=scene: render(sc, f, 0, spp=SPP), True)
-        _print_route(card, name, 'wavefront', scene, SPP,
-                     lambda f, sc=scene: _render_wavefront(sc, f, 0, SPP),
-                     False)
-    _print_route(card, 'cornell_highpoly', 'blocked wavefront', highpoly,
-                 HIGHPOLY_SPP,
-                 lambda f: render(highpoly, f, 0, spp=HIGHPOLY_SPP), False,
-                 ('blocked_shade_kernel', 'blocked_any_kernel'))
-    return kt, pk, bounds, rays_head
+        sps[name, 'megakernel'] = _print_route(
+            card, name, 'megakernel', scene, SPP,
+            lambda f, sc=scene: render(sc, f, 0, spp=SPP), True)
+        sps[name, 'wavefront'] = _print_route(
+            card, name, 'wavefront', scene, SPP,
+            lambda f, sc=scene: _render_wavefront(sc, f, 0, SPP), False)
+    print(f'[timing] host: {_host_facts()}')
+    sps['cornell_highpoly', 'blocked wavefront'] = _print_route(
+        card, 'cornell_highpoly', 'blocked wavefront', highpoly,
+        HIGHPOLY_SPP, lambda f: render(highpoly, f, 0, spp=HIGHPOLY_SPP),
+        False, ('blocked_shade_kernel', 'blocked_any_kernel'))
+    return kt, pk, bounds, rays_head, sps
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3046,10 +3022,10 @@ def monkey_asset():
 
 
 def ramp_png():
-    '''The benchmark's 64x64 grey ramp (_bench_texture) as 8-bit RGB, in
+    '''The benchmark's 64x64 grey ramp (bench_texture) as 8-bit RGB, in
     the film's axis order, and its PNG (rows are the second axis, as
     glTF images are stored and readgltf swaps them back).'''
-    ramp = np.round(_bench_texture() * 255).astype(np.uint8)
+    ramp = np.round(bench_texture() * 255).astype(np.uint8)
     return ramp, png_codec.encode(np.ascontiguousarray(ramp.swapaxes(0, 1)))
 
 
@@ -3525,6 +3501,126 @@ def phase_frontends(card, scenes):
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+BENCH_TIMEOUT = 600
+# each bench metric's counterpart in this script, by CONFIGS' position:
+# the timings phase's median of 3 for (scene, the metric's route), phase
+# 8's MLT cell ('mlt'), or none (the capacity scene is rendered once
+# there, untimed)
+BENCH_TWIN = ('cornell_monkey', 'cornell_highpoly', 'cornell_textured',
+              'matball', 'envlight', None, 'mlt', 'cornell')
+
+
+def _bench_row_ok(row):
+    v = row.get('value')
+    return isinstance(v, (int, float)) and math.isfinite(v) and v > 0 \
+        and all(k in row for k in ('unit', 'vs_baseline', 'device', 'route',
+                                   'launches', 'samples', 'host')) \
+        and row['launches'] == expected_launches(row['route'],
+                                                 row['samples'])
+
+
+def _cpu_probe_ms():
+    '''The median of 3 timings of a fixed pure-Python loop, in ms: how
+    fast the host's CPU runs this process's interpreter now.'''
+    def once():
+        t0 = time.perf_counter()
+        sum(i * i for i in range(1_000_000))
+        return (time.perf_counter() - t0) * 1e3
+    return statistics.median(once() for _ in range(3))
+
+
+def _host_facts():
+    '''The host as this process sees it: CPUs, the ones it may run on,
+    torch's threads and the CPU probe.'''
+    return (f'{os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} '
+            f'usable, torch threads {torch.get_num_threads()}, CPU probe '
+            f'{_cpu_probe_ms():.1f} ms')
+
+
+def _host_text(h):
+    return (f'host cpu {h["cpu_seconds"]:.3f} s, {h["gc_collections"]} gc, '
+            f'{h["device_mallocs"]} cudaMalloc')
+
+
+def _bench_busy(card, cfg):
+    '''One bench window of a megakernel configuration in this process and
+    the device time of its frames, each frame queued behind a spin
+    (_queued_us): the window's busy share.'''
+    scene = cfg.scene(device=DEV)
+    timed = time_render(scene, cfg.res, cfg.spp)
+    check_launches(cfg.route, timed)
+    film = new_film(cfg.res, cfg.res, device=DEV)
+    dev_s = sum(_queued_us(lambda k=k: render(scene, film, k * cfg.spp,
+                                               spp=cfg.spp))
+                for k in range(timed.samples // cfg.spp)) / 1e6
+    print(f'[bench] {card} | {cfg.metric} in this process: '
+          f'{timed.value:.3f} {cfg.unit} over {timed.samples} in '
+          f'{timed.seconds:.4f} s; its frames\' device time {dev_s:.4f} s '
+          f'-> window busy {100 * dev_s / timed.seconds:.1f}%; '
+          f'{_host_text(timed.host)}')
+
+
+def _bench_host(card, cfg, row):
+    '''One bench window of a blocked configuration in this process; its
+    host counters beside the subprocess line's.'''
+    timed = time_render(cfg.scene(device=DEV), cfg.res, cfg.spp)
+    check_launches(cfg.route, timed)
+    for who, v, n, sec, h in (
+            ('bench process', row['value'], row['samples'], row['seconds'],
+             row['host']),
+            ('this process', timed.value, timed.samples, timed.seconds,
+             timed.host)):
+        print(f'[bench] {card} | {cfg.metric}, {who}: {v:.3f} {cfg.unit} '
+              f'over {n} in {sec:.4f} s, {1e3 * sec / n:.1f} ms wall and '
+              f'{1e3 * h["cpu_seconds"] / n:.1f} ms host CPU a sample; '
+              f'{_host_text(h)}')
+
+
+def phase_bench(card, sps, mlt_mps):
+    '''Phase 12 (module docstring): python -m ptina_tpu_torch.bench as a
+    subprocess; its eight metric lines in CONFIGS order, each beside this
+    script's number for the same cell; then the megakernel windows' busy
+    share and highpoly's host counters in this process.  Returns
+    {metric: line}.'''
+    t0 = time.perf_counter()
+    print(f'[bench] host: {_host_facts()}')
+    r = subprocess.run([sys.executable, '-m', 'ptina_tpu_torch.bench'],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT)
+    for line in r.stdout.splitlines():
+        print(f'[bench] {line}')
+    if r.returncode != 0:
+        raise AssertionError(f'ptina_tpu_torch.bench exit {r.returncode}:\n'
+                             f'{r.stderr[-4000:]}')
+    rows = [json.loads(line) for line in r.stdout.splitlines()
+            if line.startswith('{')]
+    names = [row.get('metric') for row in rows]
+    if names != [c.metric for c in BENCH_CONFIGS]:
+        raise AssertionError(f'bench metric lines {names}')
+    bad = [row['metric'] for row in rows if not _bench_row_ok(row)]
+    if bad:
+        raise AssertionError(f'bench lines malformed or off their route: '
+                             f'{bad}')
+    for cfg, twin, row in zip(BENCH_CONFIGS, BENCH_TWIN, rows):
+        ref = mlt_mps if twin == 'mlt' else sps.get((twin, cfg.route))
+        beside = (f'this script {ref:.3f} ({row["value"] / ref:.3f}x)'
+                  if ref else 'not timed in this script')
+        print(f'[bench] {card} | {row["metric"]}: {row["value"]} '
+              f'{row["unit"]} over {row["samples"]} in '
+              f'{row["seconds"]:.4f} s, {row["route"]}; {beside}; '
+              f'{_host_text(row["host"])}')
+    for cfg, twin, row in zip(BENCH_CONFIGS, BENCH_TWIN, rows):
+        if cfg.route == 'megakernel':
+            _bench_busy(card, cfg)
+        elif cfg.route == 'blocked wavefront' and twin:
+            _bench_host(card, cfg, row)
+    print(f'[bench] host: {_host_facts()}')
+    print(f'[bench] phase took {time.perf_counter() - t0:.1f} s')
+    return {row['metric']: row for row in rows}
+
+
 def main():
     card = phase_device()
     phase_sqrt(card)
@@ -3546,12 +3642,13 @@ def main():
     counts = phase_main(scenes, highpoly)
     phase_capacity()
     phase_golden(scenes)
-    kt, pk, bounds, rays_head = phase_timings(card, scenes, tables,
-                                              highpoly)
+    kt, pk, bounds, rays_head, sps = phase_timings(card, scenes, tables,
+                                                   highpoly)
     eng = phase_engines(card, scenes, highpoly)
     grad = phase_grad(card, scenes, highpoly)
     scale = phase_scale(card, scenes, highpoly)
     front = phase_frontends(card, scenes)
+    bench_rows = phase_bench(card, sps, eng['mlt']['mps'])
 
     # launches per sample of each kernel's route: the dense tree casts on
     # the wavefront (fused=False) scenes, the megakernel on the five, the
@@ -3601,12 +3698,22 @@ def main():
                 'blender_final': b['launches_final'][k],
                 'blender_viewport': b['launches_viewport'][k]}
 
+    def bench_launches(k, key):
+        '''Kernel k's launches in each bench line that has any: in the
+        timed window (key 'launches') or in all the metric's work
+        ('launches_all').'''
+        return {m: row[key][k] for m, row in bench_rows.items()
+                if row[key][k]}
+
     def entry(k, source, launches, ms, plain_ms, call_ms, bound, **extra):
         return {'name': f'{k}_kernel', 'route': 'cuda', 'source': source,
                 'replaces': REPLACES[k], 'launches': launches,
                 'launches_per_sample': per_sample[k],
                 'launches_scale': scale_launches(k),
-                'launches_frontends': front_launches(k), **errs[k], 'ms': ms,
+                'launches_frontends': front_launches(k),
+                'launches_bench': bench_launches(k, 'launches'),
+                'launches_bench_all': bench_launches(k, 'launches_all'),
+                **errs[k], 'ms': ms,
                 'plain_ms': plain_ms, 'bound_ms': bound[0],
                 'bound_by': bound[1], 'library_ms': None, 'call_ms': call_ms,
                 'ptxas': ptxas.get(f'{k}_kernel', ''), **extra}

@@ -47,7 +47,9 @@ scene front-ends feeding the worker: glTF / GLB (io/readgltf.py, its
 PNGs through the stdlib codec io/_png.py), OBJ and PLY (io/readobj.py),
 per-object transforms (io/multimesh.py), the Blender render engine
 (blender.py) and the examples (examples/, python -m
-ptina_tpu_torch.examples.<name>).
+ptina_tpu_torch.examples.<name>); and the benchmark, the counterpart of
+the reference's root bench.py (bench.py, python -m ptina_tpu_torch.bench:
+its eight configurations on the card, metrics named torch_*).
 '''
 
 __version__ = '0.1.0'

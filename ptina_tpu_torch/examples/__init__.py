@@ -6,8 +6,9 @@ The reference's examples (examples/*.py), ported: each is runnable as
 and keeps its work in a main(...) whose defaults are the reference
 script's sizes, on the card.  Each prints what the reference prints and
 writes its PNGs (through io._png) into `out_dir`, the system's temporary
-directory by default.  The reference's benchmark.py is not here: it runs
-the JAX package's bench.py.
+directory by default.  benchmark.py runs the port's own benchmark
+harness, ptina_tpu_torch.bench (the counterpart of the JAX package's root
+bench.py), and writes no PNG.
 '''
 
 import os.path

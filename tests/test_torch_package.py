@@ -1,11 +1,12 @@
 '''
 Hygiene of the PyTorch port package (ptina_tpu_torch): it never imports
-JAX or the JAX package, it imports on a machine with neither nvcc nor a
-GPU (its kernel library is built only on first use on the card), nor
-Blender's bpy, nor PIL; its entry points default to the card with no CPU
-fallback; and every public name of the reference's modules has its
-counterpart in the port's mirror of that module, but the TPU-only names
-ROADMAP.md lists under "Do not port".
+JAX, the JAX package or its root bench.py, it imports on a machine with
+neither nvcc nor a GPU (its kernel library is built only on first use on
+the card), nor Blender's bpy, nor PIL; its entry points default to the
+card with no CPU fallback; every public name of the reference's modules
+has its counterpart in the port's mirror of that module, but the TPU-only
+names ROADMAP.md lists under "Do not port"; and every root script
+(examples/*.py and bench.py) has its port, with a main.
 '''
 
 import ast
@@ -48,8 +49,9 @@ def test_no_jax_imports(path):
             continue
         for name in names:
             top = name.split('.')[0]
-            assert top not in ('jax', 'jaxlib', 'flax', 'ptina_tpu'), \
-                f'{path} imports {name}'
+            # `bench` is the JAX package's root benchmark script
+            assert top not in ('jax', 'jaxlib', 'flax', 'ptina_tpu',
+                               'bench'), f'{path} imports {name}'
 
 
 def test_imports_without_jax_nvcc_or_gpu():
@@ -70,6 +72,7 @@ def test_imports_without_jax_nvcc_or_gpu():
         'import ptina_tpu_torch.examples.metropolis\n'
         'import ptina_tpu_torch.examples.objloader\n'
         'import ptina_tpu_torch.examples.interactive\n'
+        'import ptina_tpu_torch.examples.benchmark, ptina_tpu_torch.bench\n'
         'from ptina_tpu_torch.intersect import blocked, dense_cast\n'
         'from ptina_tpu_torch.engine import fused\n'
         'for m in (dense_cast, fused, blocked):\n'
@@ -97,7 +100,8 @@ CARD_DEFAULT = [
     ('checkpoint', 'mlt_state_from_numpy'), ('sampling', 'uniform_grid'),
     ('examples.smoke_render', 'main'), ('examples.coverage', 'main'),
     ('examples.matball', 'main'), ('examples.metropolis', 'main'),
-    ('examples.objloader', 'main'), ('examples.interactive', 'main')]
+    ('examples.objloader', 'main'), ('examples.interactive', 'main'),
+    ('examples.benchmark', 'main')]
 
 
 @pytest.mark.parametrize('module,name', CARD_DEFAULT,
@@ -203,3 +207,24 @@ def test_every_reference_module_is_ported(rel):
     ref = _public_names(os.path.join(ROOT, 'ptina_tpu', rel), imported=False)
     missing = sorted(ref - skip - _public_names(port))
     assert not missing, f'ptina_tpu_torch/{rel} lacks {missing}'
+
+
+def _root_scripts():
+    '''The reference's scripts at the repository's root level: every
+    examples/*.py and bench.py, each with its port's path.'''
+    ex = sorted(n for n in os.listdir(os.path.join(ROOT, 'examples'))
+                if n.endswith('.py'))
+    return [(f'examples/{n}', f'ptina_tpu_torch/examples/{n}') for n in ex] \
+        + [('bench.py', 'ptina_tpu_torch/bench.py')]
+
+
+@pytest.mark.parametrize('ref,port', _root_scripts(), ids=lambda x: x)
+def test_every_root_script_is_ported(ref, port):
+    '''Each root script has its counterpart in the port, which defines
+    main(...) (the examples\' and the benchmark\'s entry point).'''
+    path = os.path.join(ROOT, port)
+    assert os.path.exists(path), f'{port} (the port of {ref}) is missing'
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    assert any(isinstance(n, ast.FunctionDef) and n.name == 'main'
+               for n in tree.body), f'{port} defines no main'
