@@ -33,8 +33,11 @@ engines (engine/brute.py, engine/preview.py: albedo / normal AOVs,
 engine/mlt.py: Metropolis light transport on the megakernel's
 explicit-uniform head), tone mapping (tone.py), and the flat worker API
 (worker.py, selecting the engines) with its config (config.py),
-checkpoints (checkpoint.py), parameters (utils/params.py) and logging and
-profiling (utils/trace.py); and the gradients (diff.py: render_image_diff,
+checkpoints (checkpoint.py), parameters (utils/params.py) and logging,
+profiling and tracing (utils/trace.py: the program's spans and tree-walk
+counters, on with trace.enable() or under any torch.profiler session,
+read with trace.summary(); its docstring is the operator's guide); and
+the gradients (diff.py: render_image_diff,
 image_loss, material_grad, texture_grad, inverse_render_step), autograd
 through the wavefront with the casts detached, the forward of eligible
 scenes from the megakernel (engine/fused.fused_trace_diff); tiled renders

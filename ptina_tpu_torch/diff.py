@@ -21,6 +21,7 @@ from ptina_tpu_torch.engine.path import render_sample, pixel_grid, PATH_DIMS
 from ptina_tpu_torch.film import new_film, film_to_image, film_add
 from ptina_tpu_torch.sampling.sobol import sample_dims
 from ptina_tpu_torch.scene import with_tensor
+from ptina_tpu_torch.utils import trace
 
 __all__ = ['render_image_diff', 'image_loss', 'material_grad',
            'texture_grad', 'inverse_render_step']
@@ -49,17 +50,19 @@ def render_image_diff(scene, nx, ny, sample_index=0, spp=1,
     scene, else the wavefront; False = the wavefront; a callable = the
     per-sample differentiable trace (trace_diff(scene, ro, rd, u) -> V3).'''
     from ptina_tpu_torch.engine.fused import fused_eligible, fused_trace_diff
-    film = new_film(nx, ny, device=scene.device)
-    trace_diff = _trace_diff
-    if trace_diff is None and fused_eligible(scene):
-        trace_diff = fused_trace_diff
-    for s in range(spp):
-        if trace_diff is None or trace_diff is False:
-            film = render_sample(scene, film, sample_index + s, fused=False)
-        else:
-            film = _sample_diff_fused(scene, film, sample_index + s,
-                                      trace_diff)
-    return film_to_image(film)[..., :3]
+    with trace.span('grad.forward'):
+        film = new_film(nx, ny, device=scene.device)
+        trace_diff = _trace_diff
+        if trace_diff is None and fused_eligible(scene):
+            trace_diff = fused_trace_diff
+        for s in range(spp):
+            if trace_diff is None or trace_diff is False:
+                film = render_sample(scene, film, sample_index + s,
+                                     fused=False)
+            else:
+                film = _sample_diff_fused(scene, film, sample_index + s,
+                                          trace_diff)
+        return film_to_image(film)[..., :3]
 
 
 def _mse(img, target):
@@ -85,7 +88,8 @@ def _loss_and_grad(scene, target, path, sample_index=0, spp=1,
         loss = _mse(render_image_diff(with_tensor(scene, path, leaf),
                                       target.shape[0], target.shape[1],
                                       sample_index, spp, trace_diff), target)
-        g, = torch.autograd.grad(loss, leaf)
+        with trace.span('grad.backward'):
+            g, = torch.autograd.grad(loss, leaf)
     return loss.detach(), g
 
 
@@ -104,6 +108,7 @@ def texture_grad(scene, target, sample_index=0, spp=1):
 def inverse_render_step(scene, target, sample_index=0, spp=1, lr=0.1):
     '''One SGD step on the material factors toward the target image.
     Returns (scene', loss): scene' holds fac - lr * g.'''
-    loss, g = material_grad(scene, target, sample_index, spp)
-    return with_tensor(scene, ('materials', 'fac'),
-                       scene.materials.fac - lr * g), loss
+    with trace.span('grad.step'):
+        loss, g = material_grad(scene, target, sample_index, spp)
+        return with_tensor(scene, ('materials', 'fac'),
+                           scene.materials.fac - lr * g), loss

@@ -63,7 +63,10 @@ launch parameters (_Params, mirrored by PtinaPathParams).
 
 LAUNCHES counts kernel launches (incremented only where the kernel is
 launched); fused_trace_visits launches the primary head once to read the
-casts' tree-walk counters, and counts that launch too.
+casts' tree-walk counters, and counts that launch too.  While tracing is
+on (utils/trace.py) one launch in WALK_EVERY of every head fills the
+same counters into a trace.walk_buffer('path_kernel', ...), counted on
+the device.
 '''
 
 import ctypes
@@ -79,6 +82,7 @@ from ptina_tpu_torch.intersect.plucker import key_mask_for
 from ptina_tpu_torch.sampling.sobol import (hash_rotation, pixel_rotation,
                                             MAX_DIMS)
 from ptina_tpu_torch.scene import with_tensor
+from ptina_tpu_torch.utils import trace
 from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
                                               raise_on, stream_ptr)
 from ptina_tpu_torch.utils.vec import V3
@@ -226,6 +230,28 @@ def _launch(p, out):
     return V3(out[0], out[1], out[2])
 
 
+# While tracing, the kernel fills its walk counters on one launch in
+# WALK_EVERY: counting a launch (its -1 fill and the sums) costs ~2% of
+# the device time of a launch that takes the whole device, where the
+# blocked casts' cells leave the device idle most of the time.
+WALK_EVERY = 8
+
+
+def _run(p, out):
+    '''_launch, with the kernel's walk counters filled for the trace
+    (utils/trace.walk_buffer) while tracing is on.'''
+    if p.n:
+        shape = (p.n, p.depth, 2, 2)
+        if trace.tracing():
+            with trace.walk_buffer('path_kernel', shape, -1, out.device,
+                                   WALK_EVERY) as vis:
+                if vis is not None:
+                    p.visits = _addr(vis, torch.int32)
+                return _launch(p, out)
+        trace.warm_walks('path_kernel', shape, -1, out.device)
+    return _launch(p, out)
+
+
 def _check_device(scene):
     dev = scene.device
     if dev.type not in ('cpu', 'cuda'):
@@ -291,7 +317,7 @@ def fused_trace_primary(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
     pixel_grid order.'''
     if _check_device(scene).type == 'cpu':
         return fused_trace_primary_plain(scene, pt, nx, ny, x0, y0, fnx, fny)
-    return _launch(*_primary_params(scene, pt, nx, ny, x0, y0, fnx, fny))
+    return _run(*_primary_params(scene, pt, nx, ny, x0, y0, fnx, fny))
 
 
 def fused_trace_visits(scene, pt, nx, ny, x0=0, y0=0, fnx=None, fny=None):
@@ -357,7 +383,7 @@ def fused_trace_uniforms(scene, ro, rd, uniforms):
     p.head = _HEAD_EXPLICIT
     _set_rays(p, rows)
     p.uniforms = _addr(uniforms, torch.float32)
-    return _launch(p, out)
+    return _run(p, out)
 
 
 def fused_trace_plain(scene, ro, rd, pt, base):
@@ -397,7 +423,7 @@ def fused_trace(scene, ro, rd, pt, base):
     p.head = _HEAD_RAYS
     _set_rays(p, rows)
     p.base = _addr(base, torch.int32)
-    return _launch(p, out)
+    return _run(p, out)
 
 
 def _scene_tensors(scene):
@@ -456,10 +482,14 @@ class FusedTraceDiff(torch.autograd.Function):
             scene = ctx.scene
             for path, t in zip(ctx.paths, ins[6:]):
                 scene = with_tensor(scene, path, t)
-            rad = path_trace(scene, V3(*ins[:3]), V3(*ins[3:6]), uniforms)
+            with trace.span('grad.recompute'):
+                rad = path_trace(scene, V3(*ins[:3]), V3(*ins[3:6]),
+                                 uniforms)
             wrt = [t for t, n in zip(ins, need) if n]
-            got = iter(torch.autograd.grad((rad.x, rad.y, rad.z), wrt,
-                                           (gx, gy, gz), allow_unused=True))
+            with trace.span('grad.inner_backward'):
+                got = iter(torch.autograd.grad(
+                    (rad.x, rad.y, rad.z), wrt, (gx, gy, gz),
+                    allow_unused=True))
         return (None, None, None) + tuple(next(got) if n else None
                                           for n in need)
 

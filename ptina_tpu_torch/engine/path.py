@@ -48,6 +48,7 @@ from ptina_tpu_torch.materials.simple import bsdf_eval, bsdf_sample
 from ptina_tpu_torch.sampling.sobol import (sample_dims, pixel_rotation,
                                            sobol_block)
 from ptina_tpu_torch.film import film_add
+from ptina_tpu_torch.utils import trace
 
 __all__ = ['MAX_DEPTH', 'PATH_DIMS', 'SPB', 'power_heuristic', 'path_trace',
            'pixel_grid', 'render_sample', 'render']
@@ -162,8 +163,9 @@ def path_trace(scene, ro, rd, uniforms, model='disney', lanes=None):
                         device=ro.x.device),
              torch.ones_like(ro.x, dtype=torch.bool))
     for b in range(depth):
-        carry = _bounce(scene, carry, uniforms[2 + 6 * b:8 + 6 * b], model,
-                        lanes)
+        with trace.span('wavefront.bounce'):
+            carry = _bounce(scene, carry, uniforms[2 + 6 * b:8 + 6 * b],
+                            model, lanes)
     return carry[3]
 
 
@@ -205,18 +207,22 @@ def render_sample(scene, film, sample_index, x0=0, y0=0, full_res=None,
     _, _, nx, ny = film.shape
     fnx, fny = full_res if full_res is not None else (nx, ny)
     dims = 2 + 6 * max_depth
-    if _takes_fused(scene, fused, model):
-        from ptina_tpu_torch.engine.fused import fused_trace_primary
-        rad = fused_trace_primary(scene, sobol_block(sample_index, dims),
-                                  nx, ny, x0, y0, fnx, fny)
-    else:
-        ii, jj = pixel_grid(nx, ny, x0, y0, device=film.device)
-        u = sample_dims(sample_index, ii, jj, dims, rot=rot)
-        x = (ii.to(torch.float32) + u[0]) / fnx * 2.0 - 1.0
-        y = (jj.to(torch.float32) + u[1]) / fny * 2.0 - 1.0
-        ro, rd = camera_rays(scene.cam_v2w, x, y)
-        rad = path_trace(scene, ro, rd, u, model)
-    return film_add(film, 0, rad.x, rad.y, rad.z, torch.ones_like(rad.x))
+    mega = _takes_fused(scene, fused, model)
+    with trace.span('render.sample',
+                    route='megakernel' if mega else 'wavefront'):
+        if mega:
+            from ptina_tpu_torch.engine.fused import fused_trace_primary
+            rad = fused_trace_primary(scene, sobol_block(sample_index, dims),
+                                      nx, ny, x0, y0, fnx, fny)
+        else:
+            ii, jj = pixel_grid(nx, ny, x0, y0, device=film.device)
+            u = sample_dims(sample_index, ii, jj, dims, rot=rot)
+            x = (ii.to(torch.float32) + u[0]) / fnx * 2.0 - 1.0
+            y = (jj.to(torch.float32) + u[1]) / fny * 2.0 - 1.0
+            ro, rd = camera_rays(scene.cam_v2w, x, y)
+            rad = path_trace(scene, ro, rd, u, model)
+        return film_add(film, 0, rad.x, rad.y, rad.z,
+                        torch.ones_like(rad.x))
 
 
 def _render_step(scene, film, start_sample, n, model='disney',

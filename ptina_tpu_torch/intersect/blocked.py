@@ -47,15 +47,21 @@ above MAX_BLOCKED_VMEM_FACES: on the card every table is in device memory.
 
 LAUNCHES counts kernel launches per wrapper (incremented only where a
 kernel is launched); blocked_cast_visits launches both kernels once each
-to read their traversal counters, and counts those launches too.
+to read their traversal counters, and counts those launches too.  While
+tracing is on (utils/trace.py) every launch of blocked_cast_shade /
+blocked_cast_any fills the same counters into a
+trace.walk_buffer('blocked_casts', ...), counted on the device (a parked
+shadow ray counts as a cast).
 '''
 
+import contextlib
 import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from ptina_tpu_torch.utils import trace
 from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
                                               raise_on, stream_ptr)
 from ptina_tpu_torch.intersect.brute import Hit
@@ -263,6 +269,18 @@ def _library(coef, node_bounds):
     return build_library()[0]
 
 
+@contextlib.contextmanager
+def _walks(n, dev):
+    '''Around a launch: the address of the kernels' per-ray walk counters
+    (a utils/trace.walk_buffer) while tracing is on, else None.'''
+    if not trace.tracing():
+        trace.warm_walks('blocked_casts', (n, 2), 0, dev)
+        yield None
+        return
+    with trace.walk_buffer('blocked_casts', (n, 2), 0, dev) as vis:
+        yield ptr(vis)
+
+
 def _shade_out(n, dev):
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty(n, dtype=torch.bool, device=dev),
@@ -289,8 +307,9 @@ def blocked_cast_shade(ro, rd, avoid, coef, attr, block_bounds,
         raise ValueError(f'no cast for device {dev}')
     out = _shade_out(n, dev)
     if n:
-        _launch_shade(_library(coef, node_bounds), ro, rd, avoid, coef, attr,
-                      node_bounds, p, out, None)
+        with _walks(n, dev) as vis:
+            _launch_shade(_library(coef, node_bounds), ro, rd, avoid, coef,
+                          attr, node_bounds, p, out, vis)
     hit, t, idx, u, v, attrs = out
     return Hit(hit=hit, t=t, index=idx, u=u, v=v), attrs
 
@@ -315,8 +334,9 @@ def blocked_cast_any(ro, rd, avoid, tmax, coef, block_bounds, node_bounds):
         raise ValueError(f'no cast for device {dev}')
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        _launch_any(_library(coef, node_bounds), ro, rd, avoid, tmax, coef,
-                    node_bounds, p, occ, None)
+        with _walks(n, dev) as vis:
+            _launch_any(_library(coef, node_bounds), ro, rd, avoid, tmax,
+                        coef, node_bounds, p, occ, vis)
     return occ
 
 

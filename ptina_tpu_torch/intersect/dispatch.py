@@ -33,6 +33,7 @@ from ptina_tpu_torch.intersect.blocked import (BLOCK_FACES, MAX_BLOCKS,
                                                MAX_BLOCKED_FACES)
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.plucker import pack_faces
+from ptina_tpu_torch.utils import trace
 
 __all__ = ['cast_closest', 'cast_any', 'cast_shaded', 'cast_shadow',
            'route', 'MAX_DENSE_FACES']
@@ -96,14 +97,16 @@ def cast_any(ro, rd, tri_w2b, avoid, tmax):
 def cast_shadow(scene, ro, rd, avoid, tmax):
     '''Occlusion cast routed by the scene: [N] bool.'''
     r = _route(scene)
-    if r == 'brute':
-        return brute.cast_any(ro, rd, scene.tri_w2b, avoid, tmax)
-    if r == 'blocked':
-        return blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
-                                        scene.block_bounds,
-                                        scene.node_bounds)
-    return dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef,
-                               *_tree(scene))
+    with trace.span('wavefront.cast', kind='shadow'):
+        if r == 'brute':
+            return brute.cast_any(ro, rd, scene.tri_w2b, avoid, tmax)
+        if r == 'blocked':
+            return blocked.blocked_cast_any(ro, rd, avoid, tmax,
+                                            scene.face_coef,
+                                            scene.block_bounds,
+                                            scene.node_bounds)
+        return dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef,
+                                   *_tree(scene))
 
 
 def cast_shaded(scene, ro, rd, avoid):
@@ -111,18 +114,22 @@ def cast_shaded(scene, ro, rd, avoid):
     (hit, normal V3 unit (not yet two-sided-flipped), tex_s [N], tex_t [N],
     mtlid [N] int32 (-1 on a miss)).'''
     r = _route(scene)
-    if r == 'brute':
-        return _brute_shaded(scene, ro, rd, avoid)
-    if r == 'blocked':
-        hit, attrs = blocked.blocked_cast_shade(
-            ro, rd, avoid, scene.face_coef, scene.face_attr,
-            scene.block_bounds, scene.node_bounds)
-    else:
-        hit, attrs = dense_cast.cast_shade(ro, rd, avoid, scene.face_coef,
-                                           scene.face_attr, *_tree(scene))
-    normal = vnormalize(V3(attrs[0], attrs[1], attrs[2]))
-    mtlid = torch.where(hit.hit, torch.round(attrs[5]).to(torch.int32), -1)
-    return hit, normal, attrs[3], attrs[4], mtlid
+    with trace.span('wavefront.cast', kind='shaded'):
+        if r == 'brute':
+            return _brute_shaded(scene, ro, rd, avoid)
+        if r == 'blocked':
+            hit, attrs = blocked.blocked_cast_shade(
+                ro, rd, avoid, scene.face_coef, scene.face_attr,
+                scene.block_bounds, scene.node_bounds)
+        else:
+            hit, attrs = dense_cast.cast_shade(ro, rd, avoid,
+                                               scene.face_coef,
+                                               scene.face_attr,
+                                               *_tree(scene))
+        normal = vnormalize(V3(attrs[0], attrs[1], attrs[2]))
+        mtlid = torch.where(hit.hit, torch.round(attrs[5]).to(torch.int32),
+                            -1)
+        return hit, normal, attrs[3], attrs[4], mtlid
 
 
 def _brute_shaded(scene, ro, rd, avoid):

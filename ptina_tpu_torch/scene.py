@@ -50,6 +50,7 @@ from ptina_tpu_torch.intersect.blocked import (BLOCK_FACES, LEAF_FACES,
 from ptina_tpu_torch.intersect.dense_cast import MAX_DENSE_FACES
 from ptina_tpu_torch.intersect.dispatch import route
 from ptina_tpu_torch.intersect.plucker import pack_faces
+from ptina_tpu_torch.utils import trace
 from ptina_tpu_torch.utils.mathutils import sqrt
 
 __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
@@ -417,36 +418,41 @@ def _finish(tri_pos, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
             cam_w2v, accel, world_tex_id, device):
     '''Assemble the Scene from host tensors, add the kernel tables and
     move everything to `device`.'''
-    coef, attr = pack_faces(tri_w2b, tri_attrs)
+    with trace.span('scene.tables', always=True):
+        coef, attr = pack_faces(tri_w2b, tri_attrs)
     pos = np.asarray(tri_pos)
-    bounds = compute_block_bounds(pos, int(nfaces))
-    nodes = compute_node_bounds(pos, int(nfaces))
-    if route(pos.shape[0], accel) == 'dense':
-        fused_coef, fused_nodes, order = dense_tree(pos, nfaces, coef)
-    else:  # no dense cast takes the blocked or brute route
-        fused_coef = coef[:0]
-        fused_nodes = torch.zeros((0, 8), dtype=torch.float32)
-        order = torch.zeros(0, dtype=torch.int32)
+    with trace.span('scene.trees', always=True):
+        bounds = compute_block_bounds(pos, int(nfaces))
+        nodes = compute_node_bounds(pos, int(nfaces))
+        if route(pos.shape[0], accel) == 'dense':
+            fused_coef, fused_nodes, order = dense_tree(pos, nfaces, coef)
+        else:  # no dense cast takes the blocked or brute route
+            fused_coef = coef[:0]
+            fused_nodes = torch.zeros((0, 8), dtype=torch.float32)
+            order = torch.zeros(0, dtype=torch.int32)
 
     def dev(x):
         if isinstance(x, np.ndarray):
             x = torch.tensor(x)  # a copy: the caller's array may be read-only
         return x.to(device)
-    return Scene(
-        tri_pos=dev(tri_pos), tri_nrm=dev(tri_nrm), tri_uv=dev(tri_uv),
-        tri_mtl=dev(tri_mtl), tri_w2b=dev(tri_w2b), tri_attrs=dev(tri_attrs),
-        nfaces=torch.tensor(int(nfaces), dtype=torch.int32, device=device),
-        materials=materials, textures=textures, lights=lights,
-        world_fac=dev(np.asarray(world_fac, np.float32)),
-        world_tex=torch.tensor(int(world_tex), dtype=torch.int32,
-                               device=device),
-        cam_v2w=dev(np.asarray(cam_v2w, np.float32)),
-        cam_w2v=dev(np.asarray(cam_w2v, np.float32)),
-        face_coef=dev(coef), face_attr=dev(attr), block_bounds=dev(bounds),
-        node_bounds=dev(nodes),
-        fused_order=dev(order), fused_coef=dev(fused_coef),
-        fused_nodes=dev(fused_nodes), accel=accel,
-        world_tex_id=int(world_tex_id))
+    with trace.span('scene.upload', always=True):
+        return Scene(
+            tri_pos=dev(tri_pos), tri_nrm=dev(tri_nrm), tri_uv=dev(tri_uv),
+            tri_mtl=dev(tri_mtl), tri_w2b=dev(tri_w2b),
+            tri_attrs=dev(tri_attrs),
+            nfaces=torch.tensor(int(nfaces), dtype=torch.int32,
+                                device=device),
+            materials=materials, textures=textures, lights=lights,
+            world_fac=dev(np.asarray(world_fac, np.float32)),
+            world_tex=torch.tensor(int(world_tex), dtype=torch.int32,
+                                   device=device),
+            cam_v2w=dev(np.asarray(cam_v2w, np.float32)),
+            cam_w2v=dev(np.asarray(cam_w2v, np.float32)),
+            face_coef=dev(coef), face_attr=dev(attr),
+            block_bounds=dev(bounds), node_bounds=dev(nodes),
+            fused_order=dev(order), fused_coef=dev(fused_coef),
+            fused_nodes=dev(fused_nodes), accel=accel,
+            world_tex_id=int(world_tex_id))
 
 
 def make_scene(vertices, mtlids=None, materials=None, images=None,
@@ -467,55 +473,60 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
     reference's morton=None rule does (scene.py:422-432); accel='dense'
     above MAX_DENSE_FACES keeps build order for the brute route.  Raises
     ValueError above MAX_BLOCKS blocks on the blocked route.'''
-    from ptina_tpu_torch.io.matrix import ortho, lookat
-    vertices = np.asarray(vertices, np.float32)
-    if not (vertices.ndim == 2 and vertices.shape[1] == 8
-            and vertices.shape[0] % 3 == 0):
-        raise ValueError('vertices must be [F*3, 8]')
-    nfaces = vertices.shape[0] // 3
-    if mtlids is None:
-        mtlids = -np.ones(nfaces, np.int32)
-    mtlids = np.asarray(mtlids, np.int32)
-    if mtlids.shape[0] != nfaces:
-        raise ValueError('one material id per face')
+    with trace.span('scene.build', always=True):
+        from ptina_tpu_torch.io.matrix import ortho, lookat
+        vertices = np.asarray(vertices, np.float32)
+        if not (vertices.ndim == 2 and vertices.shape[1] == 8
+                and vertices.shape[0] % 3 == 0):
+            raise ValueError('vertices must be [F*3, 8]')
+        nfaces = vertices.shape[0] // 3
+        if mtlids is None:
+            mtlids = -np.ones(nfaces, np.int32)
+        mtlids = np.asarray(mtlids, np.int32)
+        if mtlids.shape[0] != nfaces:
+            raise ValueError('one material id per face')
 
-    fpad = max(pad_faces_to,
-               ((nfaces + pad_faces_to - 1) // pad_faces_to) * pad_faces_to)
-    morton = route(fpad, accel) == 'blocked'
-    tri = vertices.reshape(nfaces, 3, 8)
-    if morton and nfaces > 1:
-        perm = morton_face_order(tri[:, :, 0:3])
-        tri = tri[perm]
-        mtlids = mtlids[perm]
-    if morton:
-        fpad = -(-fpad // BLOCK_FACES) * BLOCK_FACES
-    tri_pos = np.zeros((fpad, 3, 3), np.float32)
-    tri_nrm = np.zeros((fpad, 3, 3), np.float32)
-    tri_uv = np.zeros((fpad, 3, 2), np.float32)
-    tri_mtl = -np.ones(fpad, np.int32)
-    tri_pos[:nfaces] = tri[:, :, 0:3]
-    tri_nrm[:nfaces] = tri[:, :, 3:6]
-    tri_uv[:nfaces] = tri[:, :, 6:8]
-    tri_mtl[:nfaces] = mtlids
-    # padding triangles are degenerate (all-zero) -> never hit
+        fpad = max(pad_faces_to, ((nfaces + pad_faces_to - 1)
+                                  // pad_faces_to) * pad_faces_to)
+        morton = route(fpad, accel) == 'blocked'
+        tri = vertices.reshape(nfaces, 3, 8)
+        if morton and nfaces > 1:
+            with trace.span('scene.order', always=True):
+                perm = morton_face_order(tri[:, :, 0:3])
+                tri = tri[perm]
+                mtlids = mtlids[perm]
+        if morton:
+            fpad = -(-fpad // BLOCK_FACES) * BLOCK_FACES
+        tri_pos = np.zeros((fpad, 3, 3), np.float32)
+        tri_nrm = np.zeros((fpad, 3, 3), np.float32)
+        tri_uv = np.zeros((fpad, 3, 2), np.float32)
+        tri_mtl = -np.ones(fpad, np.int32)
+        tri_pos[:nfaces] = tri[:, :, 0:3]
+        tri_nrm[:nfaces] = tri[:, :, 3:6]
+        tri_uv[:nfaces] = tri[:, :, 6:8]
+        tri_mtl[:nfaces] = mtlids
+        # padding triangles are degenerate (all-zero) -> never hit
 
-    if cam_pers is None:
-        cam_pers = ortho() @ lookat()
-    cam_pers = np.asarray(cam_pers, np.float32)
+        if cam_pers is None:
+            cam_pers = ortho() @ lookat()
+        cam_pers = np.asarray(cam_pers, np.float32)
 
-    tri_pos_t = torch.from_numpy(tri_pos)
-    tri_w2b = precompute_tri_functionals(tri_pos_t)
-    tri_attrs = pack_corner_attrs(torch.from_numpy(tri_nrm),
-                                  torch.from_numpy(tri_uv),
-                                  torch.from_numpy(tri_mtl))
-    return _finish(
-        tri_pos_t, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
-        make_materials(materials, max_materials=max_materials, device=device),
-        make_textures(images, device=device),
-        make_lights(lights, max_lights=max_lights,
-                    default_light=default_light, device=device),
-        world_fac, world_tex, np.linalg.inv(cam_pers), cam_pers, accel,
-        world_tex, device)
+        tri_pos_t = torch.from_numpy(tri_pos)
+        with trace.span('scene.tables', always=True):
+            tri_w2b = precompute_tri_functionals(tri_pos_t)
+            tri_attrs = pack_corner_attrs(torch.from_numpy(tri_nrm),
+                                          torch.from_numpy(tri_uv),
+                                          torch.from_numpy(tri_mtl))
+        with trace.span('scene.upload', always=True):
+            mats = make_materials(materials, max_materials=max_materials,
+                                  device=device)
+            tex = make_textures(images, device=device)
+            lts = make_lights(lights, max_lights=max_lights,
+                              default_light=default_light, device=device)
+        return _finish(
+            tri_pos_t, tri_nrm, tri_uv, tri_mtl, tri_w2b, tri_attrs, nfaces,
+            mats, tex, lts, world_fac, world_tex, np.linalg.inv(cam_pers),
+            cam_pers, accel, world_tex, device)
 
 
 _TRI_KEYS = ('tri_pos', 'tri_nrm', 'tri_uv', 'tri_mtl', 'tri_w2b',

@@ -1,6 +1,7 @@
 '''
 Build a CUDA source of the package into a shared library with nvcc, at
-first use, and load it with ctypes.
+first use, and load it with ctypes; each build or load is a
+`kernels.build` span (utils/trace.py; attr compiled: whether nvcc ran).
 
 Shared by every kernel library of the port (intersect/dense_cast.py,
 engine/fused.py).  The library goes into build/ptina_tpu_torch/ beside the
@@ -20,6 +21,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from ptina_tpu_torch.utils import trace
 
 __all__ = ['NVCC_FLAGS', 'CSRC', 'BUILD_DIR', 'build_shared_library', 'ptr',
            'stream_ptr', 'raise_on']
@@ -55,27 +58,30 @@ def build_shared_library(stem, main, sources, flags=NVCC_FLAGS):
     file exists, and load it.  Returns (ctypes.CDLL, nvcc log text —
     empty when an existing build was loaded).  Raises RuntimeError with
     the log when nvcc fails.'''
-    h = hashlib.sha256(' '.join(flags).encode())
-    for name in sources:
-        h.update((CSRC / name).read_bytes())
-    lib_path = BUILD_DIR / f'lib{stem}_{h.hexdigest()[:16]}.so'
-    log = ''
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *flags, '-o', tmp, str(CSRC / main)],
-                capture_output=True, text=True, check=False)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return ctypes.CDLL(str(lib_path)), log
+    with trace.span('kernels.build', always=True, lib=stem) as sp:
+        h = hashlib.sha256(' '.join(flags).encode())
+        for name in sources:
+            h.update((CSRC / name).read_bytes())
+        lib_path = BUILD_DIR / f'lib{stem}_{h.hexdigest()[:16]}.so'
+        log = ''
+        sp.attrs['compiled'] = not lib_path.exists()
+        if sp.attrs['compiled']:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *flags, '-o', tmp, str(CSRC / main)],
+                    capture_output=True, text=True, check=False)
+                log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f'nvcc failed ({proc.returncode}):\n{log}')
+                os.replace(tmp, lib_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        return ctypes.CDLL(str(lib_path)), log
 
 
 def ptr(t):

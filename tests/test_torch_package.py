@@ -152,7 +152,8 @@ def test_card_default_has_no_cpu_fallback():
 # Pallas casts, whose port is intersect/dense_cast.py; the MXU chunking of
 # the hit contract; the blocked cast's VMEM / SMEM tiling; the
 # megakernel's VMEM caps, tile rows, one-hot switch and interpret
-# plumbing)
+# plumbing), and the reference's unbounded `timings` dict, whose port is
+# the recorder's bounded aggregates (utils/trace.summary())
 DO_NOT_PORT = {
     'intersect/pallas_cast.py': None,
     'intersect/plucker.py': {
@@ -167,6 +168,7 @@ DO_NOT_PORT = {
     'engine/fused.py': {
         'MAX_FUSED_TEX_BINDINGS', 'MAX_FUSED_TEX_BYTES',
         'ONEHOT_FETCH_MIN_MATERIALS', 'RG', 'fused_trace_diff_interp'},
+    'utils/trace.py': {'timings'},
 }
 
 
