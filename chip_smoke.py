@@ -139,7 +139,8 @@ without the final line):
                 1 spp a call, each call with every count at 0 just before
                 it and read just after: material_grad on cornell_monkey
                 through the pair (engine/fused.fused_trace_diff: 1 path, 5
-                shade and 5 any launches) and the wavefront (5 + 5):
+                shade, 5 any and 5 material_rows launches) and the
+                wavefront (5 + 5 + 5):
                 losses within 2e-3, gradients allclose(rtol=0.05, atol=1e-4
                 max|g|), the white wall's basecolor red against a central
                 difference (5%); texture_grad on matball (the 64x64
@@ -149,12 +150,21 @@ without the final line):
                 difference; the light color (cornell) and world factor
                 (envlight) in the image mean against central differences;
                 material_grad on cornell_highpoly (the blocked wavefront, 5
-                blocked_shade + 5 blocked_any) finite and one factor
-                against its difference; 4 inverse_render_steps on cornell
-                toward a darker wall (the loss falls; fac - lr g bit for
-                bit).  Per gradient call: wall ms of its forward and
-                backward, device ms (profiler; path_kernel by CUDA
-                events), busy share and peak memory.
+                blocked_shade + 5 blocked_any + 5 material_rows) finite and
+                one factor against its difference; 4 inverse_render_steps
+                on cornell toward a darker wall (the loss falls; fac - lr g
+                bit for bit).  Per gradient call: wall ms of its forward
+                and backward, device ms (profiler; path_kernel by CUDA
+                events), busy share and peak memory.  The material fetch's
+                backward kernel (csrc/material_rows.cu) on the rows and
+                cotangents of each bounce of one cornell_monkey
+                material_grad (262,144 lanes, 5 rows): bit for bit against
+                its plain twin and PyTorch's gather backward (index_put_
+                with accumulate, the aten path), twice the same bits; its
+                and aten's device ms on each bounce (the twin's on the one
+                with the longest row) and at 300 and 4,000 uniform rows;
+                its bound (the longest row's adds, 4 cycles each, beside
+                the bytes): [grad] material_rows lines.
  10. scale    — the scale-out path, each item with every count at 0 just
                 before it and read just after: render(spp=32, spb=8) and
                 spb=1 on the five scenes at 512^2 (equal films bit for
@@ -167,7 +177,7 @@ without the final line):
                 of each blocked cast), each equal to the one-band render
                 bit for bit, samples/s of both; train_step_sharded on
                 cornell_monkey at 512^2, 4 bands (5 x 4 of each tree
-                cast): the gradient allclose(rtol=1e-3) to the one-band
+                cast and of material_rows): the gradient allclose(rtol=1e-3) to the one-band
                 wavefront material_grad, two steps lower the loss, the
                 step's wall and device ms; the two-process launcher
                 (python -m ptina_tpu_torch.parallel, two ranks on the card
@@ -238,7 +248,9 @@ The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
 plain version, its time, its plain version's time, its bound and what
 sets it, and library_ms, null: no single PyTorch call computes a ray-face
-closest hit, occlusion or path; launches_grad_* its launches in one
+closest hit, occlusion or path; material_rows_kernel's library_ms is
+PyTorch's gather backward on the same rows; launches_grad_* its launches
+in one
 gradient call of phase 9; launches_scale its launches in each item of
 phase 10; launches_frontends its launches in each item of phase 11;
 launches_bench / launches_bench_all its launches in each bench line's
@@ -265,7 +277,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ptina_tpu_torch import intersect, worker
+from ptina_tpu_torch import intersect, mtllib, worker
 from ptina_tpu_torch.bench import (CONFIGS as BENCH_CONFIGS, bench_texture,
                                    card_line, check_launches,
                                    expected_launches, oracle_agreement,
@@ -330,6 +342,10 @@ N_RAGGED = 100_003
 # (bench.py:232-234); its capacity check 256^2 x 2 spp (bench.py:216)
 HIGHPOLY_SPP = 8
 CAPACITY_RES, CAPACITY_SPP = 256, 2
+# the material fetch's backward at many materials (Blender scenes carry
+# hundreds): uniform rows over these counts, on cornell_monkey's
+# cotangents
+MATERIAL_ROWS_WIDE = (300, 4000)
 # the other engines at the reference benchmark's settings: brute 32 spp;
 # MLT's cell (bench.py:154-170): 2^17 chains, rounds of 4 steps, one
 # warm-up round and 4 timed; Kelemen's brightness check
@@ -836,7 +852,8 @@ def _hold_rays_head(name, scene, relative):
 
 # ---------------------------------------------------------------- phase 4
 
-_COUNTS = (dense_cast.LAUNCHES, fused.LAUNCHES, blocked.LAUNCHES)
+_COUNTS = (dense_cast.LAUNCHES, fused.LAUNCHES, blocked.LAUNCHES,
+           mtllib.LAUNCHES)
 
 
 def _zero_counts():
@@ -2415,10 +2432,12 @@ def _grad_monkey(card, scene):
     wall's basecolor red against a central difference.'''
     zero = torch.zeros(RES, RES, 3, device=DEV)
     (lf, gf), pair = _launched(lambda: material_grad(scene, zero))
-    _need('grad monkey pair', pair, _expect(path=1, shade=DEPTH, any=DEPTH))
+    _need('grad monkey pair', pair, _expect(path=1, shade=DEPTH, any=DEPTH,
+                                            material_rows=DEPTH))
     (lw, gw), wave = _launched(lambda: _loss_and_grad(
         scene, zero, ('materials', 'fac'), trace_diff=False))
-    _need('grad monkey wavefront', wave, _expect(shade=DEPTH, any=DEPTH))
+    _need('grad monkey wavefront', wave, _expect(shade=DEPTH, any=DEPTH,
+                                                 material_rows=DEPTH))
     rel = abs(lf.item() - lw.item()) / max(lw.item(), 1e-6)
     atol = 1e-4 * max(gw.abs().max().item(), 1e-6)
     close = torch.isclose(gf, gw, rtol=0.05, atol=atol)
@@ -2497,10 +2516,109 @@ def _grad_inverse(card, scene):
         raise AssertionError(f'inverse_render_step: losses {losses}')
 
 
+def _max_sm_ghz():
+    '''The card's top SM clock in GHz (nvidia-smi clocks.max.sm).'''
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.split()[0]) / 1e3
+
+
+def _aten_rows_grad(row, g_base, g_scal, m1):
+    '''PyTorch's own backward of fetch_material's two gathers (index_put_
+    with accumulate: the aten path) as the [m1, 12, 4] gradient.'''
+    fac = torch.zeros((m1, 12, 4), device=row.device, requires_grad=True)
+    return torch.autograd.grad((fac[:, 0, 0:3][row], fac[:, :, 0][row]),
+                               fac, (g_base, g_scal))[0]
+
+
+def _grad_material_rows(card, scene):
+    '''The material fetch's backward kernel on a real gradient: the rows
+    and cotangents of each bounce of one material_grad on cornell_monkey
+    at 512^2 (recorded at mtllib.material_rows_backward); the kernel
+    against its plain twin and the aten path, bit for bit, twice.  Device
+    ms (CUDA events behind a spin) of the kernel and the aten path on
+    each bounce and of the twin on the one with the longest row, and of
+    the kernel and the aten path at MATERIAL_ROWS_WIDE uniform rows on its
+    cotangents (the kernel bit for bit with its twin there too).  The bound: the
+    longest row's adds, a dependent chain at 4 cycles an add at the
+    card's top clock, beside the bytes, n * (8 + 15 * 4), at 3.35 TB/s.
+    Returns the kernels line's numbers.'''
+    seen, real = [], mtllib.material_rows_backward
+    plain = mtllib.material_rows_backward_plain
+
+    def record(row, g_base, g_scal, m1):
+        seen.append((row.clone(), g_base.clone(), g_scal.clone(), m1))
+        return real(row, g_base, g_scal, m1)
+    mtllib.material_rows_backward = record
+    try:
+        material_grad(scene, torch.zeros(RES, RES, 3, device=DEV))
+    finally:
+        mtllib.material_rows_backward = real
+    seen.reverse()  # autograd runs the bounces' backward last to first
+    if len(seen) != DEPTH or any(r.numel() != N_FULL for r, *_ in seen):
+        raise AssertionError(f'material_rows: {len(seen)} backward calls '
+                             f'of {[r.numel() for r, *_ in seen]} lanes, '
+                             f'expected {DEPTH} of {N_FULL}')
+    longest, by_bounce, aten_by_bounce = [], [], []
+    for b, (row, gb, gs, m1) in enumerate(seen):
+        got = real(row, gb, gs, m1)
+        same = {'twice': torch.equal(got, real(row, gb, gs, m1)),
+                'plain twin': torch.equal(got, plain(row, gb, gs, m1)),
+                'aten': torch.equal(got, _aten_rows_grad(row, gb, gs, m1))}
+        counts = torch.bincount(row, minlength=m1).tolist()
+        longest.append(max(counts))
+        by_bounce.append(_device_ms(lambda: real(row, gb, gs, m1), reps=20))
+        aten_by_bounce.append(_device_ms(
+            lambda: _aten_rows_grad(row, gb, gs, m1), reps=3))
+        print(f'[grad] material_rows {card} | cornell_monkey bounce {b}, '
+              f'{row.numel()} lanes, lanes a row {counts}: bit for bit '
+              f'with ' + ', '.join(f'{k} {v}' for k, v in same.items())
+              + f'; kernel {by_bounce[-1]:.4f} ms, aten '
+              f'{aten_by_bounce[-1]:.4f} ms')
+        if not all(same.values()):
+            raise AssertionError(f'material_rows bounce {b}: {same}')
+    b = max(range(DEPTH), key=lambda i: longest[i])
+    row, gb, gs, m1 = seen[b]
+    n = row.numel()
+    ms, library_ms = by_bounce[b], aten_by_bounce[b]
+    plain_ms = _device_ms(lambda: plain(row, gb, gs, m1), reps=3)
+    chain_ms = longest[b] * 4 / _max_sm_ghz() / 1e6
+    bytes_ms = n * (8 + 15 * 4) / 3.35e12 * 1e3
+    print(f'[grad] material_rows {card} | bounce {b} (longest row '
+          f'{longest[b]} of {n} lanes, {m1} rows): kernel {ms:.4f} ms, '
+          f'plain twin {plain_ms:.4f} ms, aten {library_ms:.4f} ms; bound '
+          f'{chain_ms:.4f} ms (the longest row\'s add chain; bytes '
+          f'{bytes_ms:.4f} ms), {chain_ms / ms:.1%} of it')
+    wide, wide_aten = {}, {}
+    g = torch.Generator(device='cpu').manual_seed(17)
+    for m in MATERIAL_ROWS_WIDE:
+        rw = torch.randint(0, m, (n,), generator=g).to(DEV)
+        if not torch.equal(real(rw, gb, gs, m), plain(rw, gb, gs, m)):
+            raise AssertionError(f'material_rows at {m} rows: not the '
+                                 f'plain twin\'s bits')
+        wide[m] = _device_ms(lambda: real(rw, gb, gs, m), reps=10)
+        wide_aten[m] = _device_ms(lambda: _aten_rows_grad(rw, gb, gs, m),
+                                  reps=3)
+        print(f'[grad] material_rows {card} | {m} rows, uniform over {n} '
+              f'lanes: kernel {wide[m]:.4f} ms (= plain twin bit for bit), '
+              f'aten {wide_aten[m]:.4f} ms')
+    log = mtllib.build_library()[1]
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(chain_ms, bytes_ms),
+                bound_by='add chain' if chain_ms >= bytes_ms else 'bytes',
+                bound_ms_bytes=bytes_ms, lanes=n, rows=m1,
+                longest_row=longest[b], ms_by_bounce=by_bounce,
+                library_ms_by_bounce=aten_by_bounce, ms_by_rows=wide,
+                library_ms_by_rows=wide_aten,
+                ptxas=ptxas_by_kernel(log).get('material_rows_kernel', ''))
+
+
 def phase_grad(card, scenes, highpoly):
     '''The gradients at 512^2, depth 5, 1 spp a call (module docstring,
     phase 9).  Returns the launches of the pair, the wavefront and the
-    blocked route.'''
+    blocked route, and the material-row kernel's numbers.'''
     t0 = time.perf_counter()
     zero = torch.zeros(RES, RES, 3, device=DEV)
     fac = ('materials', 'fac')
@@ -2510,6 +2628,7 @@ def phase_grad(card, scenes, highpoly):
                  zero, None, pair)
     _grad_timing(card, 'cornell_monkey material_grad, wavefront', monkey, fac,
                  zero, False, wave)
+    rows = _grad_material_rows(card, monkey)
     matball_launches = _grad_matball(card, scenes['matball'])
     _grad_timing(card, 'matball texture_grad, pair', scenes['matball'],
                  ('textures', 'data'), zero, None, matball_launches)
@@ -2531,7 +2650,8 @@ def phase_grad(card, scenes, highpoly):
     (loss, g), blocked_launches = _launched(lambda: material_grad(highpoly,
                                                                   zero))
     _need('grad highpoly', blocked_launches,
-          _expect(blocked_shade=DEPTH, blocked_any=DEPTH))
+          _expect(blocked_shade=DEPTH, blocked_any=DEPTH,
+                  material_rows=DEPTH))
     if not bool(torch.isfinite(g).all()):
         raise AssertionError('grad highpoly: not finite')
     _hold_fd(f'{card} | cornell_highpoly fac[0, 0, 0] (eps 1e-2)',
@@ -2541,7 +2661,8 @@ def phase_grad(card, scenes, highpoly):
                  highpoly, fac, zero, None, blocked_launches)
     _grad_inverse(card, scenes['cornell'])
     print(f'[grad] phase took {time.perf_counter() - t0:.1f} s')
-    return dict(pair=pair, wavefront=wave, blocked=blocked_launches)
+    return dict(pair=pair, wavefront=wave, blocked=blocked_launches,
+                material_rows=rows)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2649,7 +2770,8 @@ def _scale_grad(card, monkey, mesh):
                                   lr=INVERSE_LR)
     (s1, l1), grew = _launched(lambda: step(monkey))
     grew = {k: v for k, v in grew.items() if v}
-    _need('scale grad', grew, {'shade': DEPTH * n, 'any': DEPTH * n})
+    _need('scale grad', grew, {'shade': DEPTH * n, 'any': DEPTH * n,
+                               'material_rows': DEPTH * n})
     _, g1 = _loss_and_grad(monkey, target, ('materials', 'fac'),
                            trace_diff=False)
     g4 = (monkey.materials.fac - s1.materials.fac) / INVERSE_LR
@@ -3792,6 +3914,17 @@ def main():
                            sign_pass_pairs=hp['pairs'][k][1],
                            **engine_extra[k], **blocked_extra[k])
                 for k in ('blocked_shade', 'blocked_any')]
+    # the material fetch's backward: no TPU kernel, gradients only
+    kernels.append(dict(
+        name='material_rows_kernel', route='cuda',
+        source='ptina_tpu_torch/csrc/material_rows.cu', replaces=None,
+        launches=grad['pair']['material_rows'],
+        launches_grad_pair=grad['pair']['material_rows'],
+        launches_grad_wavefront=grad['wavefront']['material_rows'],
+        launches_grad_blocked=grad['blocked']['material_rows'],
+        launches_scale={'grad_sharded': scale['grad']['launches'].get(
+            'material_rows', 0)},
+        **grad['material_rows']))
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -40,7 +40,9 @@ read with trace.summary(); its docstring is the operator's guide); and
 the gradients (diff.py: render_image_diff,
 image_loss, material_grad, texture_grad, inverse_render_step), autograd
 through the wavefront with the casts detached, the forward of eligible
-scenes from the megakernel (engine/fused.fused_trace_diff); tiled renders
+scenes from the megakernel (engine/fused.fused_trace_diff), the material
+fetch's backward on the card one kernel a bounce (mtllib.MaterialRows,
+csrc/material_rows.cu, which replaces no Pallas kernel); tiled renders
 (render_sample's x0, y0, full_res) and render's spb groups; film bands
 over a mesh of devices, the data-parallel gradient step and the
 torch.distributed runtime with its two-process launcher (parallel/); the

@@ -78,6 +78,9 @@ The spans of the port, by site:
                                     torch.autograd.grad of _loss_and_grad
     grad.recompute,                 engine/fused.FusedTraceDiff.backward:
       grad.inner_backward             its path_trace; its autograd.grad
+    grad.material_rows              mtllib.material_rows_backward: the
+                                    material fetch's backward kernel, one
+                                    a bounce (inside grad.inner_backward)
 
 A span opened on a thread with no open span of its own (autograd's device
 thread, running a backward) takes as its parent the newest span still
