@@ -38,7 +38,8 @@ profiling and tracing (utils/trace.py: the program's spans and tree-walk
 counters, on with trace.enable() or under any torch.profiler session,
 read with trace.summary(); its docstring is the operator's guide); and
 the gradients (diff.py: render_image_diff,
-image_loss, material_grad, texture_grad, inverse_render_step), autograd
+image_loss, material_grad, texture_grad, inverse_render_step,
+inverse_texture_step), autograd
 through the wavefront with the casts detached, the forward of eligible
 scenes from the megakernel (engine/fused.fused_trace_diff), the material
 fetch's backward on the card one kernel a bounce (mtllib.MaterialRows,

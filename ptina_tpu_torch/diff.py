@@ -11,7 +11,8 @@ engine/fused.fused_trace_diff, the megakernel's explicit-uniform head
 forward and a path_trace recompute backward; on any other scene, and on
 the CPU, autograd runs through the wavefront (render_sample(fused=False)).
 
-Typical use: inverse-rendering a material to match a target image.
+Typical use: inverse-rendering a material (inverse_render_step) or a
+texture map (inverse_texture_step) to match a target image.
 '''
 
 import torch
@@ -24,7 +25,7 @@ from ptina_tpu_torch.scene import with_tensor
 from ptina_tpu_torch.utils import trace
 
 __all__ = ['render_image_diff', 'image_loss', 'material_grad',
-           'texture_grad', 'inverse_render_step']
+           'texture_grad', 'inverse_render_step', 'inverse_texture_step']
 
 
 def _sample_diff_fused(scene, film, sample_index, trace_diff):
@@ -112,3 +113,12 @@ def inverse_render_step(scene, target, sample_index=0, spp=1, lr=0.1):
         loss, g = material_grad(scene, target, sample_index, spp)
         return with_tensor(scene, ('materials', 'fac'),
                            scene.materials.fac - lr * g), loss
+
+
+def inverse_texture_step(scene, target, sample_index=0, spp=1, lr=0.1):
+    '''One SGD step on the texture atlas toward the target image.
+    Returns (scene', loss): scene' holds textures.data - lr * g.'''
+    with trace.span('grad.step'):
+        loss, g = texture_grad(scene, target, sample_index, spp)
+        return with_tensor(scene, ('textures', 'data'),
+                           scene.textures.data - lr * g), loss

@@ -13,6 +13,8 @@ Reference: ptina_tpu/utils/trace.py (log, timed, profile_trace).
   * `walk_buffer(kernel, shape, fill, device)` — the per-ray tree-walk
     counters of a kernel launch, counted into the kernel's accumulators
     on the device;
+  * `add_counts(name, got)` — a program counter: an int64 vector added
+    into the named device sum;
   * `summary()`, `spans()`, `reset()` — what was recorded;
   * `timed(name)` — a span that always records and, with a tensor to wait
     for (sync=, or box['sync'] inside the block), synchronises that
@@ -41,17 +43,20 @@ on,
   * the tree-walk kernels (the path megakernel, the blocked casts) get
     their per-ray counters (walk_buffer), which the program counts on the
     device a batch of launches at a time, with no host sync and no extra
-    launch of a port kernel.
+    launch of a port kernel;
+  * the program's other counters (add_counts) are added into device sums
+    where they are counted, with no host sync.
 
 Reading.  `summary()` synchronises once, resolves the events and returns
 the aggregates, which never drop: `traced` (spans recorded while on) and
 `always` (the set-up spans and timed blocks), each {name: {count,
 host_ns, self_ns, device_ns, device_count}} (self: host time minus the
 host time of the span's children; device_ns None where no event was
-recorded), `walks` {kernel: {casts, inner, leaves, leaf_slots}}, and
-`recorded` / `dropped`, the ring's counts.  `spans()` returns the ring's
-newest records (at most RING_CAP; the older ones are dropped and
-counted).  `reset()` clears everything.  An operator:
+recorded), `walks` {kernel: {casts, inner, leaves, leaf_slots}},
+`counts` {name: [the sums of add_counts]}, and `recorded` / `dropped`,
+the ring's counts.  `spans()` returns the ring's newest records (at
+most RING_CAP; the older ones are dropped and counted).  `reset()`
+clears everything.  An operator:
 
     from ptina_tpu_torch.utils import trace
     trace.enable()
@@ -73,7 +78,8 @@ The spans of the port, by site:
     wavefront.bounce                engine/path._bounce
     wavefront.cast (kind)           intersect/dispatch.cast_shaded /
                                     cast_shadow (kind shaded / shadow)
-    grad.step                       diff.inverse_render_step
+    grad.step                       diff.inverse_render_step,
+                                    diff.inverse_texture_step
     grad.forward, grad.backward     diff.render_image_diff; the
                                     torch.autograd.grad of _loss_and_grad
     grad.recompute,                 engine/fused.FusedTraceDiff.backward:
@@ -81,6 +87,16 @@ The spans of the port, by site:
     grad.material_rows              mtllib.material_rows_backward: the
                                     material fetch's backward kernel, one
                                     a bounce (inside grad.inner_backward)
+    grad.texel_rows                 texture.texel_rows_backward: a texel
+                                    gather's backward, four a fetch of a
+                                    textured scene (inside
+                                    grad.inner_backward on the card)
+
+The counters of add_counts, by name:
+
+    texel_rows                      texture.texel_rows_backward: lanes
+                                    walked, lanes with a nonzero
+                                    cotangent row, distinct texels written
 
 A span opened on a thread with no open span of its own (autograd's device
 thread, running a backward) takes as its parent the newest span still
@@ -99,9 +115,9 @@ import torch
 import torch.autograd.profiler as _profiler
 
 __all__ = ['log', 'set_verbosity', 'span', 'enable', 'disable', 'tracing',
-           'walk_buffer', 'warm_walks', 'summary', 'spans', 'reset',
-           'timed', 'profile_trace', 'Recorder', 'RECORDER', 'RING_CAP',
-           'WALK_BATCH']
+           'walk_buffer', 'warm_walks', 'add_counts', 'summary', 'spans',
+           'reset', 'timed', 'profile_trace', 'Recorder', 'RECORDER',
+           'RING_CAP', 'WALK_BATCH']
 
 _VERBOSITY = 1
 
@@ -167,6 +183,7 @@ class Recorder:
             self.dropped = 0
             self.agg = {'traced': {}, 'always': {}}
             self.walks = {}  # kernel -> [casts possible, int64 [4] sums]
+            self.counts = {}  # name -> int64 [k] device sums
             # (kernel, shape, fill, device) -> [buffer, slots used,
             # launches seen]
             self._batches = {}
@@ -333,6 +350,15 @@ class Recorder:
             acc[0] += m * n * k
             acc[1] += got
 
+    def add_counts(self, name, got):
+        '''add_counts (module function) in this recorder.'''
+        with self._lock:
+            acc = self.counts.get(name)
+            if acc is None or acc.device != got.device:
+                self.counts[name] = got.clone()
+            else:
+                acc += got
+
     # ---- reading
 
     def summary(self):
@@ -354,6 +380,7 @@ class Recorder:
                 gone, inner, leaves, most = acc.tolist()
                 out['walks'][k] = {'casts': possible + gone, 'inner': inner,
                                    'leaves': leaves, 'leaf_slots': 32 * most}
+            out['counts'] = {k: v.tolist() for k, v in self.counts.items()}
             out['recorded'] = len(self.ring) + self.dropped
             out['dropped'] = self.dropped
             return out
@@ -440,6 +467,13 @@ def warm_walks(kernel, shape, fill, device):
             with scratch.walk_buffer(kernel, small, fill, device):
                 pass
         scratch.summary()
+
+
+def add_counts(name, got):
+    '''Add got, an int64 [k] tensor of one site's counts (tracing on),
+    into the named sum on got's device, with no host sync; summary()
+    reads it once as `counts`[name].'''
+    RECORDER.add_counts(name, got)
 
 
 def summary():

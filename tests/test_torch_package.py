@@ -112,14 +112,15 @@ def test_entry_points_default_to_the_card(module, name):
 
 
 def test_gradient_entry_points_are_exported_and_follow_the_scene():
-    '''diff.py's five functions and the pair (engine.fused_trace_diff, the
+    '''diff.py's six functions and the pair (engine.fused_trace_diff, the
     autograd Function FusedTraceDiff) are exported; the gradients take no
     device of their own: they run where the scene lies.'''
     from ptina_tpu_torch import diff, engine
     from ptina_tpu_torch.engine import fused
     assert set(diff.__all__) == {'render_image_diff', 'image_loss',
                                  'material_grad', 'texture_grad',
-                                 'inverse_render_step'}
+                                 'inverse_render_step',
+                                 'inverse_texture_step'}
     for name in diff.__all__:
         assert 'device' not in inspect.signature(getattr(diff, name)) \
             .parameters
