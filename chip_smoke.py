@@ -164,7 +164,17 @@ without the final line):
                 and aten's device ms on each bounce (the twin's on the one
                 with the longest row) and at 300 and 4,000 uniform rows;
                 its bound (the longest row's adds, 4 cycles each, beside
-                the bytes): [grad] material_rows lines.
+                the bytes): [grad] material_rows lines.  The texel
+                gathers' backward kernel (csrc/texel_rows.cu) on the
+                texid, x, y and cotangents of each of the 116 backwards
+                of one matball texture_grad (262,144 lanes, the 64x64
+                atlas; its texture_grad 232 launches): bit for bit
+                against its plain twin and the aten path, twice the same
+                bits; its and aten's device ms on each, and on every lane
+                live on random texels and on one texel; no slower than
+                aten on any; its bound (16 bytes a lane and 24 a live
+                lane at 3.35 TB/s, beside the longest texel's adds):
+                [grad] texel_rows lines.
  10. scale    — the scale-out path, each item with every count at 0 just
                 before it and read just after: render(spp=32, spb=8) and
                 spb=1 on the five scenes at 512^2 (equal films bit for
@@ -248,8 +258,9 @@ The last two lines are a {"kernels": [...]} JSON object (per kernel:
 launches on the main path and per sample, its largest error against its
 plain version, its time, its plain version's time, its bound and what
 sets it, and library_ms, null: no single PyTorch call computes a ray-face
-closest hit, occlusion or path; material_rows_kernel's library_ms is
-PyTorch's gather backward on the same rows; launches_grad_* its launches
+closest hit, occlusion or path; material_rows_kernel's and
+texel_rows_kernel's library_ms is PyTorch's gather backward on the same
+rows; launches_grad_* its launches
 in one
 gradient call of phase 9; launches_scale its launches in each item of
 phase 10; launches_frontends its launches in each item of phase 11;
@@ -277,7 +288,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ptina_tpu_torch import intersect, mtllib, worker
+from ptina_tpu_torch import intersect, mtllib, texture, worker
 from ptina_tpu_torch.bench import (CONFIGS as BENCH_CONFIGS, bench_texture,
                                    card_line, check_launches,
                                    expected_launches, oracle_agreement,
@@ -346,6 +357,10 @@ CAPACITY_RES, CAPACITY_SPP = 256, 2
 # hundreds): uniform rows over these counts, on cornell_monkey's
 # cotangents
 MATERIAL_ROWS_WIDE = (300, 4000)
+# the texel gathers' backwards of one 1-spp texture_grad on matball at
+# depth 5 (those of the 29 of 60 fetches whose parameter reaches the
+# radiance), two launches of csrc/texel_rows.cu each
+TEXEL_BACKWARDS = 116
 # the other engines at the reference benchmark's settings: brute 32 spp;
 # MLT's cell (bench.py:154-170): 2^17 chains, rounds of 4 steps, one
 # warm-up round and 4 timed; Kelemen's brightness check
@@ -853,7 +868,7 @@ def _hold_rays_head(name, scene, relative):
 # ---------------------------------------------------------------- phase 4
 
 _COUNTS = (dense_cast.LAUNCHES, fused.LAUNCHES, blocked.LAUNCHES,
-           mtllib.LAUNCHES)
+           mtllib.LAUNCHES, texture.LAUNCHES)
 
 
 def _zero_counts():
@@ -2463,7 +2478,8 @@ def _grad_matball(card, scene):
     central difference.'''
     zero = torch.zeros(RES, RES, 3, device=DEV)
     (loss, g), grew = _launched(lambda: texture_grad(scene, zero))
-    _need('grad matball', grew, _expect(path=1, shade=DEPTH, any=DEPTH))
+    _need('grad matball', grew, _expect(path=1, shade=DEPTH, any=DEPTH,
+                                        texel_rows=2 * TEXEL_BACKWARDS))
     ch0 = g[0, :, :, 0].abs()
     share = (ch0 > 0).float().mean().item()
     rest = g[..., 1:].abs().sum().item()
@@ -2615,6 +2631,117 @@ def _grad_material_rows(card, scene):
                 ptxas=ptxas_by_kernel(log).get('material_rows_kernel', ''))
 
 
+def _grad_texel_rows(card, scene):
+    '''The texel gathers' backward kernel on a real gradient: the texid,
+    x, y and cotangents of the TEXEL_BACKWARDS backwards of one
+    texture_grad on matball at 512^2 (recorded at
+    texture.texel_rows_backward); the kernel against its plain twin and
+    the aten path (autograd's own gather backward), bit for bit, twice.
+    Device ms (CUDA events behind a spin) of the kernel and the aten path
+    on each backward, and on two dense cases on the same atlas (every
+    lane live, on random texels; every lane on one texel), beside each
+    one's bound.  The kernel may be no slower than the aten path on any
+    of them.  Returns the kernels line's numbers.'''
+    seen, real = [], texture.texel_rows_backward
+    plain = texture.texel_rows_backward_plain
+
+    def record(texid, x, y, g, shape):
+        seen.append((texid.clone(), x.clone(), y.clone(), g.clone(),
+                     tuple(shape)))
+        return real(texid, x, y, g, shape)
+    texture.texel_rows_backward = record
+    try:
+        texture_grad(scene, torch.zeros(RES, RES, 3, device=DEV))
+    finally:
+        texture.texel_rows_backward = real
+    if len(seen) != TEXEL_BACKWARDS \
+            or any(args[3].shape[0] != N_FULL for args in seen):
+        raise AssertionError(f'texel_rows: {len(seen)} backward calls, '
+                             f'expected {TEXEL_BACKWARDS} of {N_FULL} lanes')
+    ghz = _max_sm_ghz()
+
+    def aten(texid, x, y, g, shape):
+        data = torch.zeros(shape, device=DEV, requires_grad=True)
+        return torch.autograd.grad(data[texid, x, y], data, g)[0]
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def held(what, args):
+        got = real(*args)
+        same = {'twice': torch.equal(bits(got), bits(real(*args))),
+                'plain twin': torch.equal(bits(got), bits(plain(*args))),
+                'aten': torch.equal(bits(got), bits(aten(*args)))}
+        if not all(same.values()):
+            raise AssertionError(f'texel_rows {what}: {same}')
+        texid, x, y, g, shape = args
+        on = (g != 0).any(dim=1)
+        key = ((texid * shape[1] + x) * shape[2] + y)[on]
+        live = int(on.sum())
+        most = int(torch.bincount(key).max()) if live else 0
+        ms = _device_ms(lambda: real(*args), reps=20)
+        aten_ms = _device_ms(lambda: aten(*args), reps=3)
+        # the bytes any implementation moves (16 a lane walked, 24 a live
+        # lane) beside the longest texel's chain of adds at 4 cycles
+        nbytes = (16 * g.shape[0] + 24 * live) / 3.35e12 * 1e3
+        chain = most * 4 / ghz / 1e6
+        bound = (nbytes, 'bytes') if nbytes >= chain else (chain, 'add chain')
+        if ms > aten_ms:
+            raise AssertionError(f'texel_rows {what}: kernel {ms:.4f} ms, '
+                                 f'slower than aten {aten_ms:.4f} ms')
+        return dict(live=live, most=most, ms=ms, library_ms=aten_ms,
+                    bound_ms=bound[0], bound_by=bound[1])
+
+    rows = [held(f'backward {i}', args) for i, args in enumerate(seen)]
+    live = [r['live'] for r in rows]
+    busy = [i for i, v in enumerate(live) if v]
+    # one backward of each fetch (its four gathers read alike), and the
+    # slowest
+    slowest = max(range(len(rows)), key=lambda j: rows[j]['ms'])
+    for i in sorted({i - i % 4 for i in busy} | {slowest}):
+        r = rows[i]
+        print(f'[grad] texel_rows {card} | matball backward {i}: {r["live"]} '
+              f'live of {N_FULL} lanes, at most {r["most"]} on a texel: '
+              f'kernel {r["ms"]:.4f} ms, aten {r["library_ms"]:.4f} ms; '
+              f'bound {r["bound_ms"]:.5f} ms ({r["bound_by"]})')
+    ms = sum(r['ms'] for r in rows)
+    library_ms = sum(r['library_ms'] for r in rows)
+    bound_ms = sum(r['bound_ms'] for r in rows)
+    print(f'[grad] texel_rows {card} | matball texture_grad {RES}x{RES}: '
+          f'{TEXEL_BACKWARDS} backwards, {len(busy)} with a live lane '
+          f'({sum(live)} live of {TEXEL_BACKWARDS * N_FULL} lanes), each '
+          f'bit for bit with its twin, aten and itself; kernel {ms:.4f} ms '
+          f'a step (each {min(r["ms"] for r in rows):.4f}-'
+          f'{max(r["ms"] for r in rows):.4f}), aten {library_ms:.4f} ms; '
+          f'bound {bound_ms:.4f} ms, {bound_ms / ms:.2%} of it')
+    shape = seen[0][4]
+    rng = torch.Generator(device='cpu').manual_seed(19)
+    dense_g = torch.randn((N_FULL, 4), generator=rng).to(DEV)
+    rand = [torch.randint(0, d, (N_FULL,), generator=rng).to(DEV)
+            for d in shape[:3]]
+    one = [torch.full((N_FULL,), d // 2, dtype=torch.int64, device=DEV)
+           for d in shape[:3]]
+    dense = {}
+    for name, idx in (('random_texels', rand), ('one_texel', one)):
+        r = dense[name] = held(f'dense {name}', (*idx, dense_g, shape))
+        print(f'[grad] texel_rows {card} | dense, every lane live on '
+              f'{name.replace("_", " ")} of {shape}: bit for bit; kernel '
+              f'{r["ms"]:.4f} ms, aten {r["library_ms"]:.4f} ms; bound '
+              f'{r["bound_ms"]:.5f} ms ({r["bound_by"]})')
+    log = texture.build_library()[1]
+    ptx = ptxas_by_kernel(log)
+    return dict(max_abs_err=0.0, ms=ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by='bytes and add chains, summed',
+                lanes=N_FULL, backwards=TEXEL_BACKWARDS,
+                live_by_backward=live,
+                ms_by_backward=[r['ms'] for r in rows],
+                library_ms_by_backward=[r['library_ms'] for r in rows],
+                bound_ms_by_backward=[r['bound_ms'] for r in rows],
+                dense=dense,
+                ptxas={k: ptx.get(k, '') for k in ('texel_lanes_kernel',
+                                                    'texel_keys_kernel')})
+
+
 def phase_grad(card, scenes, highpoly):
     '''The gradients at 512^2, depth 5, 1 spp a call (module docstring,
     phase 9).  Returns the launches of the pair, the wavefront and the
@@ -2630,6 +2757,7 @@ def phase_grad(card, scenes, highpoly):
                  zero, False, wave)
     rows = _grad_material_rows(card, monkey)
     matball_launches = _grad_matball(card, scenes['matball'])
+    texel_rows = _grad_texel_rows(card, scenes['matball'])
     _grad_timing(card, 'matball texture_grad, pair', scenes['matball'],
                  ('textures', 'data'), zero, None, matball_launches)
     # the light color (cornell) and world factor (envlight) in the image
@@ -2662,7 +2790,8 @@ def phase_grad(card, scenes, highpoly):
     _grad_inverse(card, scenes['cornell'])
     print(f'[grad] phase took {time.perf_counter() - t0:.1f} s')
     return dict(pair=pair, wavefront=wave, blocked=blocked_launches,
-                material_rows=rows)
+                material_rows=rows, texel_rows=texel_rows,
+                matball=matball_launches)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3925,6 +4054,13 @@ def main():
         launches_scale={'grad_sharded': scale['grad']['launches'].get(
             'material_rows', 0)},
         **grad['material_rows']))
+    # the texel gathers' backward: no TPU kernel, gradients only
+    kernels.append(dict(
+        name='texel_rows_kernel', route='cuda',
+        source='ptina_tpu_torch/csrc/texel_rows.cu', replaces=None,
+        launches=grad['matball']['texel_rows'],
+        launches_grad_matball=grad['matball']['texel_rows'],
+        **grad['texel_rows']))
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

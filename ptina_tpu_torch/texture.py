@@ -8,22 +8,58 @@ padded [T, H, W, 4] atlas.
 The texel gather's backward.  Each of a fetch's four texel gathers,
 `data[texid, x, y]`, goes through TexelRows: its forward is the same
 indexing (the same values bit for bit; with no grad mode, or an atlas
-that needs none, autograd records nothing), and its backward,
-texel_rows_backward, is the gather's own backward, index_put_ with
-accumulate into zeros, so the gradient is autograd's own, bit for bit,
-on either device.  On the card that backward is PyTorch's sort and its
-serial walk over each texel's lanes; each runs inside a
-`grad.texel_rows` span (utils/trace.py), and while tracing is on it
-counts, as device sums (trace.add_counts('texel_rows', ...)), the lanes
-it walks, the lanes whose cotangent row is nonzero and the distinct
-texels it writes.
+that needs none, autograd records nothing), and its backward is
+texel_rows_backward.  Autograd's own gather backward, index_put_ with
+accumulate into zeros, runs on the card as a sort and a serial walk over
+each texel's lanes, most of them all-zero rows on the sky's and the
+ground's texels at uv 0.  On CUDA tensors texel_rows_backward is instead
+two launches of csrc/texel_rows.cu, which skips the lanes whose cotangent
+row is all zeros and makes the sums index_put_ makes on the card, each a
+float32 sum from +0 over the texel's lanes in lane order, so the gradient
+is the aten path's bit for bit (the kernel's note says why skipping keeps
+the bits).  On CPU tensors it is the plain twin,
+texel_rows_backward_plain, the gather's own backward, so the CPU
+gradients are autograd's own.  The library is built at the first
+backward on the card (utils/cuda_build.py); LAUNCHES counts its launches.
+Each backward runs inside a `grad.texel_rows` span (utils/trace.py), the
+kernel's two launches alone inside a `grad.texel_rows.kernels` span, and
+while tracing is on it counts, as device sums (trace.add_counts(
+'texel_rows', ...)), the lanes it walks, the lanes whose cotangent row
+is nonzero and the distinct texels it writes.
 '''
+
+import ctypes
+import functools
 
 import torch
 
 from ptina_tpu_torch.utils import trace
+from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
+                                              raise_on, stream_ptr)
 
-__all__ = ['sample_texture', 'TexelRows', 'texel_rows_backward']
+__all__ = ['sample_texture', 'TexelRows', 'texel_rows_backward',
+           'texel_rows_backward_plain', 'build_library', 'LAUNCHES']
+
+LAUNCHES = {'texel_rows': 0}
+
+_SOURCES = ('texel_rows.cu',)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+@functools.lru_cache(maxsize=1)
+def build_library():
+    '''Compile (once per source hash; utils/cuda_build.py) and load the
+    texel-row library.  Returns (ctypes.CDLL, nvcc log text — empty when
+    an existing build was loaded).'''
+    lib, log = build_shared_library('ptina_texel_rows', _SOURCES[0],
+                                    _SOURCES)
+    lib.ptina_texel_rows_scratch.argtypes = [_I, _I]
+    lib.ptina_texel_rows_scratch.restype = ctypes.c_size_t
+    lib.ptina_texel_rows.argtypes = [_P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
+                                     _I, _P, _P, _P]
+    lib.ptina_texel_rows.restype = _I
+    return lib, log
 
 
 def _count(texid, x, y, g, shape):
@@ -38,14 +74,61 @@ def _count(texid, x, y, g, shape):
     return torch.stack([live.new_full((), flat.shape[0]), live, mark.sum()])
 
 
+def texel_rows_backward_plain(texid, x, y, g, shape):
+    '''Plain twin of texel_rows_backward: the gather's own backward,
+    zeros of `shape` with each lane's row added at its texel by
+    index_put_(accumulate=True) (on the card a float32 sum from +0 in lane
+    order a texel and channel).'''
+    return torch.zeros(shape, dtype=g.dtype, device=g.device) \
+        .index_put_((texid, x, y), g, accumulate=True)
+
+
+def _texel_rows_kernel(texid, x, y, g, shape):
+    '''The two launches of csrc/texel_rows.cu, or an exception.'''
+    n = g.shape[0]
+    t_, h_, w_, c_ = shape
+    texels = t_ * h_ * w_
+    dev = g.device
+    if g.dtype != torch.float32 or g.shape != (n, 4) or c_ != 4:
+        raise ValueError('texel_rows_backward: g must be [N, 4] float32 '
+                         'onto a [T, H, W, 4] atlas')
+    for name, t in (('texid', texid), ('x', x), ('y', y)):
+        if t.dtype != torch.int64 or t.shape != (n,) or t.device != dev:
+            raise ValueError(f'texel_rows_backward: {name} must be [{n}] '
+                             f'int64 on {dev}')
+    if n >= 2 ** 31 or texels >= 2 ** 31:
+        raise ValueError('texel_rows_backward: over 2^31 lanes or texels')
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if n == 0 or texels == 0:
+        return out.zero_()
+    lib, _ = build_library()
+    g = g.contiguous()
+    if g.data_ptr() % 16:  # the kernel reads a row as one 16-byte load
+        g = g.clone()
+    scratch = torch.empty(lib.ptina_texel_rows_scratch(n, texels),
+                          dtype=torch.uint8, device=dev)
+    args = (ptr(g), texid.data_ptr(), x.data_ptr(), y.data_ptr(),
+            texid.stride(0), x.stride(0), y.stride(0), n, h_, w_, texels,
+            ptr(scratch), ptr(out), stream_ptr())
+    with trace.span('grad.texel_rows.kernels'):
+        err = lib.ptina_texel_rows(*args)
+    raise_on(err, 'texel_rows')
+    LAUNCHES['texel_rows'] += 2
+    return out
+
+
 def texel_rows_backward(texid, x, y, g, shape):
     '''The backward of one texel gather data[texid, x, y]: texid, x, y
     [N] int64, g [N, 4] cotangents -> the [T, H, W, 4] gradient of the
-    atlas (shape), zeros with each lane's row added at its texel by
-    index_put_(accumulate=True), as autograd's gather backward makes it.'''
+    atlas (shape), each texel's lanes' rows summed from +0 in lane order,
+    as autograd's gather backward makes it on the card.  CPU tensors take
+    the plain twin; CUDA tensors two launches of the kernel, or an
+    exception.'''
     with trace.span('grad.texel_rows'):
-        out = torch.zeros(shape, dtype=g.dtype, device=g.device) \
-            .index_put_((texid, x, y), g, accumulate=True)
+        if g.device.type == 'cuda':
+            out = _texel_rows_kernel(texid, x, y, g, shape)
+        else:
+            out = texel_rows_backward_plain(texid, x, y, g, shape)
     if trace.tracing():
         trace.add_counts('texel_rows', _count(texid, x, y, g, shape))
     return out

@@ -20,7 +20,8 @@ __all__ = ['KERNEL_NAMES', 'ptxas_by_kernel', 'sass', 'face_loop_path']
 # is inside 'blocked_shade_kernel')
 KERNEL_NAMES = ('blocked_shade_kernel', 'blocked_any_kernel',
                 'closest_kernel', 'any_flat_kernel', 'shade_kernel',
-                'any_kernel', 'path_kernel', 'material_rows_kernel')
+                'any_kernel', 'path_kernel', 'material_rows_kernel',
+                'texel_lanes_kernel', 'texel_keys_kernel')
 
 
 def _instance(line):

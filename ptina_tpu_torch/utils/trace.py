@@ -91,6 +91,9 @@ The spans of the port, by site:
                                     gather's backward, four a fetch of a
                                     textured scene (inside
                                     grad.inner_backward on the card)
+    grad.texel_rows.kernels         texture._texel_rows_kernel: the two
+                                    launches of csrc/texel_rows.cu alone
+                                    (inside grad.texel_rows, on the card)
 
 The counters of add_counts, by name:
 

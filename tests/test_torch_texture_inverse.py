@@ -10,6 +10,10 @@ scene perfbench/scenes/matball.py).  Here:
     counts and texel patterns; with no grad mode, no graph;
   * its counters (tracing on) on a case counted by hand, and the
     gradient bit for bit with tracing on and off;
+  * the invariant the card's kernel (csrc/texel_rows.cu) rests on: the
+    plain backward over only the lanes with a nonzero row equals the
+    full one bit for bit, with rows of -0, rows holding a NaN and all
+    rows zero; and CPU tensors take the plain twin;
   * texture_grad through TexelRows bit for bit with plain indexing, its
     grad.texel_rows span count a 1-spp step at depth 5;
   * the frozen scene against the program's scenes.matball;
@@ -124,6 +128,76 @@ def test_texel_rows_counters_on_a_known_case(rec):
     assert got['counts']['texel_rows'] == [12, 8, 8]
     assert got['traced']['grad.texel_rows']['count'] == 2
     assert torch.equal(on, off)
+
+
+def _rows(pattern, n, rng):
+    '''[n, 4] cotangents, about a third of the rows live: the rest all
+    +0 ('sparse'), -0 or mixed signed zeros ('neg_zero'), or +0 with some
+    live rows holding a NaN ('nan'); or every row +0 ('all_zero').'''
+    g = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32))
+    dead = torch.from_numpy(rng.random(n) < 0.65)
+    g[dead] = 0.0
+    if pattern == 'neg_zero':
+        sign = torch.from_numpy(rng.random((n, 4)) < 0.5)
+        g[dead] = torch.where(sign, -0.0, 0.0)[dead]
+        g[~dead, 1] = -0.0  # a live row may hold -0 in a channel
+    elif pattern == 'nan':
+        g[torch.nonzero(~dead)[::7, 0], 2] = float('nan')
+    elif pattern == 'all_zero':
+        g.zero_()
+        g[::2] = -0.0
+    return g
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize('pattern', ['sparse', 'neg_zero', 'nan',
+                                     'all_zero'])
+@pytest.mark.parametrize('shape,n,where', [
+    ((1, 4, 4, 4), 257, 'one_texel'), ((2, 8, 16, 4), 4096, 'hot'),
+    ((1, 64, 64, 4), 4096, 'uniform')])
+def test_skipping_zero_rows_keeps_the_bits(one_thread, pattern, shape, n,
+                                           where):
+    '''The invariant the card's kernel rests on: the plain backward over
+    only the lanes whose row has a nonzero channel (NaN counts as
+    nonzero) equals the full plain backward bit for bit.  A texel's sum
+    from +0 is never -0, and adding +0 or -0 leaves it as it was.'''
+    rng = np.random.default_rng([n, len(pattern), len(where)])
+    texid, x, y = _gather(shape, n, where, rng)
+    g = _rows(pattern, n, rng)
+    full = texture.texel_rows_backward_plain(texid, x, y, g, shape)
+    live = (g != 0).any(dim=1)
+    assert (pattern == 'all_zero') == (not bool(live.any()))
+    part = texture.texel_rows_backward_plain(texid[live], x[live], y[live],
+                                             g[live], shape)
+    assert torch.equal(_bits(full), _bits(part))
+    assert not bool((_bits(full) == _bits(torch.tensor(-0.0))).any())
+    if pattern == 'nan':
+        assert bool(full.isnan().any())
+
+
+def test_cpu_backward_takes_the_plain_twin(monkeypatch):
+    '''On CPU tensors texel_rows_backward runs the plain twin: no launch,
+    no library built, autograd's own gradient.'''
+    seen = []
+    plain = texture.texel_rows_backward_plain
+
+    def record(*args):
+        seen.append(args)
+        return plain(*args)
+    monkeypatch.setattr(texture, 'texel_rows_backward_plain', record)
+    monkeypatch.setattr(texture, 'build_library', lambda: pytest.fail(
+        'the CPU backward built the CUDA library'))
+    before = texture.LAUNCHES['texel_rows']
+    rng = np.random.default_rng(5)
+    shape = (2, 8, 16, 4)
+    texid, x, y = _gather(shape, 300, 'hot', rng)
+    g = _rows('sparse', 300, rng)
+    got = texel_rows_backward(texid, x, y, g, shape)
+    assert len(seen) == 1 and texture.LAUNCHES['texel_rows'] == before
+    assert torch.equal(got, plain(texid, x, y, g, shape))
 
 
 def _inputs(size=MAP, square=2):
