@@ -16,13 +16,12 @@ worker measures, on the card:
   * path_kernel: device ms per 512x512 sample (depth 5, sample 9) of
     fused_trace_primary on the five benchmark scenes (cornell,
     cornell_monkey, textured cornell, envlight, matball), CUDA events
-    around 10 launches queued behind a spinning stream (chip_smoke.py's
-    _queued_us);
+    around 10 launches queued behind a spinning stream (_queued_ms);
   * shade_kernel / any_kernel: device ms per call of the dense route's
     dispatch.cast_shaded / cast_shadow (an entry point with one signature
     in every tree, whatever its kernels take) at 262,144 seeded random
-    rays from inside the cornell box, on the five scenes and chip_smoke's
-    random 2,504-face table, the same way;
+    rays from inside the cornell box, on the five scenes and a random
+    2,504-face table, the same way;
   * closest_kernel / any_flat_kernel: device ms per call of the
     table-level dense_cast.cast_closest / cast_any_flat (each tree's
     default) on the same rays and the same six face tables;
@@ -36,15 +35,18 @@ outputs are equal bit for bit.  A turn that builds its tree's kernels
 returns nvcc's log and its libraries' paths; the parent prints, for both
 trees, ptxas's registers, stack and spills of each kernel and, where
 cuobjdump is there, the instructions of one face's common path through
-closest_kernel's face loop ([sass]; ptina_tpu_torch.utils.kernel_report of
-this tree reads both).  Prints the card's name and power limit
-and, as its last line, one JSON object: per kernel and scene each
+closest_kernel's face loop ([sass]; ptxas_by_kernel and face_loop_path
+below read both; they need no GPU, no nvcc and no torch, and sass()
+returns nothing without cuobjdump).  Prints the card's name and power
+limit and, as its last line, one JSON object: per kernel and scene each
 turn's ms, the median per tree, and this / other.  Uses only entry points
 both trees have.  Exits non-zero without a GPU.
 '''
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,6 +57,125 @@ RES, DIMS, SAMPLE, REPS = 512, 32, 9, 10
 N_RAYS = 262_144
 SCENES = ('cornell', 'cornell_monkey', 'cornell_textured', 'envlight',
           'matball')
+
+
+# kernel names as nvcc's log gives them, the longer first ('shade_kernel'
+# is inside 'blocked_shade_kernel')
+KERNEL_NAMES = ('blocked_shade_kernel', 'blocked_any_kernel',
+                'closest_kernel', 'any_flat_kernel', 'shade_kernel',
+                'any_kernel', 'path_kernel', 'material_rows_kernel',
+                'texel_lanes_kernel', 'texel_keys_kernel')
+
+
+def _instance(line):
+    '''The label of a kernel template's instantiation in an nvcc log line
+    (its mangled bool template arguments), or None: kBoxes as 'boxes' or
+    'two leaves', path_kernel's kRays as 'rays head'.'''
+    m = re.search(r'kernelI((?:Lb\d+E)+)E', line)
+    if not m:
+        return None
+    words = []
+    for j, v in enumerate(re.findall(r'Lb(\d+)E', m.group(1))):
+        if j == 0:
+            words.append('boxes' if v == '1' else 'two leaves')
+        elif v == '1':
+            words.append('rays head')
+    return ', '.join(words) + ': '
+
+
+def ptxas_by_kernel(log):
+    '''{kernel: ptxas resource line} from an nvcc -Xptxas -v log (empty
+    when a library was loaded, not built); the instantiations of a kernel
+    template share its line, each named: the tree kernels' kBoxes
+    (path_kernel, shade_kernel and any_kernel: the tree walk with box
+    tests, and the one for tables of at most two leaves) and
+    path_kernel's rays head.'''
+    out, name = {}, None
+    for line in log.splitlines():
+        if 'entry function' in line:
+            name = next((k for k in KERNEL_NAMES if k in line), None)
+            inst = _instance(line)
+            if name and inst:
+                out[name] = out.get(name, '') + ('; ' if name in out else '') \
+                    + inst
+            elif name:
+                out[name] = ''
+        elif name and ('stack frame' in line or 'registers' in line):
+            sep = '; ' if out[name] and not out[name].endswith(': ') else ''
+            out[name] += sep + line.split(':')[-1].strip()
+    return out
+
+
+def sass(lib_path, kernel):
+    '''[(address, instruction)] of one kernel (a substring of its mangled
+    name) in cuobjdump -sass of a library; [] without cuobjdump.'''
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not os.path.exists(tool):
+        return []
+    out = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                         text=True, check=False, timeout=120).stdout
+    code, inside = [], False
+    for line in out.splitlines():
+        if 'Function : ' in line:
+            inside = kernel in line
+        m = re.match(r'\s+/\*([0-9a-f]{4,})\*/\s+([^;]*);', line)
+        if inside and m:
+            code.append((int(m.group(1), 16), m.group(2).strip()))
+    return code
+
+
+def _branch(ins):
+    '''(conditional?, target address) of a BRA instruction, else None.'''
+    m = re.match(r'(@!?U?P\w+\s+)?BRA(\.\S+)?\s.*?(0x[0-9a-f]+)$', ins)
+    return (bool(m.group(1)), int(m.group(3), 16)) if m else None
+
+
+def _opcode(ins):
+    op = ins.split()[1] if ins.startswith('@') else ins.split()[0]
+    return op.split('.')[0]
+
+
+def face_loop_path(code):
+    '''One face's common path through a flat kernel's unrolled face loop:
+    (instructions a face, {opcode: count a face}), or None where the loop
+    is not found.  The loop is the innermost one (a backward BRA with no
+    other inside its body) that holds the most LDS.128; each face loads
+    its 16 coefficients with 4, so its faces are its LDS.128 / 4.  The
+    path walks the body once from its head to its backward branch: a
+    conditional forward branch inside the body is taken (it skips what a
+    face guards: the hit work of a face no ray of the thread passes, the
+    reciprocal of an invalid pair), one whose target lies outside the body
+    is not (a rare path laid out after the loop), and an unconditional
+    one is followed.  The loop's own step is shared among the faces.'''
+    at = {addr: k for k, (addr, _) in enumerate(code)}
+    backs = [(at[b[1]], k) for k, (addr, ins) in enumerate(code)
+             if (b := _branch(ins)) and b[1] < addr and b[1] in at]
+    inner = [(h, e) for h, e in backs
+             if not any(h <= h2 and e2 < e for h2, e2 in backs)]
+
+    def lds(h, e):
+        return sum(ins.startswith('LDS.128') for _, ins in code[h:e + 1])
+    inner = [(h, e) for h, e in inner if lds(h, e) >= 8 and lds(h, e) % 4 == 0]
+    if not inner:
+        return None
+    h, e = max(inner, key=lambda he: lds(*he))
+    faces = lds(h, e) // 4
+    counts, k = {}, h
+    while k <= e:
+        addr, ins = code[k]
+        op = _opcode(ins)
+        counts[op] = counts.get(op, 0) + 1
+        b = _branch(ins)
+        if k == e or b is None:
+            k += 1
+        elif b[1] in at and h < at[b[1]] <= e:
+            k = at[b[1]]
+        elif b[0]:
+            k += 1
+        else:
+            return None
+    n = sum(counts.values())
+    return n / faces, {op: c / faces for op, c in counts.items()}
 
 
 def _queued_ms(torch, fn, reps=REPS):
@@ -123,8 +244,8 @@ def worker(tree, out_path):
                            rng.randint(0, f, N_RAYS), -1), torch.int32),
                 t(rng.uniform(0.0, 6.0, N_RAYS)))
     def random_table():
-        '''chip_smoke.py's random 2,504-face table (its material ids have
-        no materials: the casts only).'''
+        '''A random 2,504-face table (its material ids have no
+        materials: the casts only).'''
         rng = np.random.RandomState(3)
         tris = (rng.randn(2500, 3, 3) * 2.0).astype(np.float32)
         verts = np.concatenate([tris.reshape(-1, 3),
@@ -187,10 +308,6 @@ def worker(tree, out_path):
 def _print_build(side, got, printed):
     '''The ptxas lines of a turn that built its tree, and the [sass] line
     of its tree's closest_kernel once a tree.'''
-    # imported here, not at the top: a worker imports ptina_tpu_torch from
-    # its own tree
-    from ptina_tpu_torch.utils.kernel_report import (face_loop_path,
-                                                     ptxas_by_kernel, sass)
     for kern, info in ptxas_by_kernel(got['log']).items():
         print(f'[compare] ptxas {side} {kern}: {info}')
     if side in printed:

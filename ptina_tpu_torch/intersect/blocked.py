@@ -30,10 +30,11 @@ beside it: a loop over the blocks in index order with a strict < update
 of (key, block), which tests every block (the tree only culls, so the
 plain versions take node_bounds and do not read it).  box_entries is the
 torch twin of the kernels' slab test: the tests hold the culling to it,
-and leaf_pairs counts with it the pair tests a ray needs (the kernels'
-bound in chip_smoke.py).  The wrappers pick by the tensors'
-device, as intersect/dense_cast.py does: CPU tensors go to the plain
-version, CUDA tensors to the kernel or an exception, with no fallback.
+and leaf_pairs counts with it the pair tests a ray needs (the floor
+tests/test_torch_cuda_kernels.py holds the kernels' walk counters to).
+The wrappers pick by the tensors' device, as intersect/dense_cast.py
+does: CPU tensors go to the plain version, CUDA tensors to the kernel
+or an exception, with no fallback.
 The library is built with nvcc at first use (utils/cuda_build.py, with
 --fmad=false, so kernel and plain version round alike); importing this
 module needs neither nvcc nor a GPU.

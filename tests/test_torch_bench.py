@@ -13,8 +13,8 @@ The port's benchmark harness (ptina_tpu_torch.bench) and its example
   * the launch check raises on counts that do not match the route;
   * the example prints the reference's line; main() refuses the CPU.
 
-On the card the harness runs as `python -m ptina_tpu_torch.bench`
-(chip_smoke.py's bench phase).
+On the card the harness runs as `python -m ptina_tpu_torch.bench`, which
+checks each line's launches against its route before it prints.
 '''
 
 import ast

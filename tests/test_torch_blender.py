@@ -18,7 +18,6 @@ CPU, against the JAX reference's (ptina_tpu.blender):
 '''
 
 import functools
-import os
 import sys
 import types
 
@@ -32,10 +31,7 @@ from ptina_tpu.film import PASS_ALBEDO, PASS_COMBINED, PASS_NORMAL
 from ptina_tpu_torch import blender, worker
 from ptina_tpu_torch.io.matrix import lookat, perspective
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import chip_smoke  # noqa: E402  (the Blender scene it renders on the card)
+import torch_assets
 
 torch.set_num_threads(2)
 
@@ -148,8 +144,9 @@ def test_classify_updates():
 
 # ------------------------------------------ the engine's worker calls
 
-# chip_smoke's Blender scene (the same two objects and lamp it renders
-# at 512^2 on the card) with a coarser sphere
+# torch_assets' Blender scene (the same two objects and lamp that
+# tests/test_torch_cuda_frontends.py renders on the card) with a coarser
+# sphere
 NU, NV = 12, 6
 _CAMERA = (perspective(40, 1.0), lookat(pos=(0, 1.5, 0), back=(0, 0.5, 6.5)))
 
@@ -160,7 +157,7 @@ def test_sync_worker_and_viewport_pass():
     its size; a preview rung fills the albedo pass.'''
     from ptina_tpu_torch.io.multimesh import compose_multiple_meshes
     worker.init(device='cpu')
-    args = chip_smoke.blender_scene(NU, NV)
+    args = torch_assets.blender_scene(NU, NV)
     blender.sync_worker(worker, *args)
     verts, ids = compose_multiple_meshes(args[2])
     np.testing.assert_array_equal(worker._S.vertices, verts)
@@ -226,8 +223,9 @@ def _linked(node):
 
 
 def _material(bpy, name):
-    bsdf = types.SimpleNamespace(inputs={
-        k: _socket(v) for k, v in chip_smoke.BLENDER_MATERIALS[name].items()})
+    socket = torch_assets.BLENDER_MATERIALS[name]
+    bsdf = types.SimpleNamespace(inputs={k: _socket(v)
+                                         for k, v in socket.items()})
     mat = bpy.types.Material()
     mat.name = name
     mat.node_tree = types.SimpleNamespace(nodes={
@@ -259,11 +257,11 @@ def _mesh_object(bpy, name, verts, world, material):
 
 
 def _depsgraph(bpy):
-    mats = {n: _material(bpy, n) for n in chip_smoke.BLENDER_MATERIALS}
+    mats = {n: _material(bpy, n) for n in torch_assets.BLENDER_MATERIALS}
     bpy.data.materials.update(mats)
     objs = [_mesh_object(bpy, name, v, w, mats[m])
-            for name, v, w, m in chip_smoke.blender_objects(NU, NV)]
-    world, color, energy, size = chip_smoke._ceiling_lamp()
+            for name, v, w, m in torch_assets.blender_objects(NU, NV)]
+    world, color, energy, size = torch_assets._ceiling_lamp()
     objs.append(types.SimpleNamespace(
         name='Lamp', type='LIGHT', matrix_world=world,
         data=types.SimpleNamespace(type='AREA', size=size,
@@ -373,7 +371,7 @@ def test_engine_classes_through_a_stand_in_bpy(monkeypatch):
 
     # the port's engine = the headless calls on the port worker
     worker.init()
-    blender.sync_worker(worker, *chip_smoke.blender_scene(NU, NV))
+    blender.sync_worker(worker, *torch_assets.blender_scene(NU, NV))
     worker.set_size(RES, RES)
     worker.set_camera(uploads[blender]['camera'])
     worker.render()

@@ -5,14 +5,21 @@ Marked `cuda`: each test skips where torch.cuda.is_available() is false
 
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda --noconftest
 
+Square roots: CUDA's torch.sqrt and the port's mathutils.sqrt, on the
+card and on its host, equal the float64 root rounded to float32 on 2^20
+values (normals of every exponent, subnormals, [0.01, 100], the special
+values): the kernels' sqrtf, their plain twins on the card and the CPU
+tests all assume IEEE roots.
+
 The cast kernels (dense, closest and blocked) are built with
 --fmad=false, so on identical inputs they agree with the plain versions
-bit for bit; the tolerances stated in chip_smoke.py (index and occlusion
-on >= 99.99% of rays) hold with room.  The dense scene-level casts
+bit for bit.  The dense scene-level casts
 (shade_kernel, any_kernel) walk each scene's box tree (fused_nodes) and
-equal their plain versions on random rays, a ragged count and the
-wavefront's own per-bounce rays on the five dense benchmark scenes and a
-random 2,500-face table; their walk counters (dense_cast_visits) cover
+equal their plain versions on random rays, a ragged count, rays parked
+at tmax 0 or reaching past the far clip, and the
+wavefront's own per-bounce rays on the five dense benchmark scenes at
+64^2 (cornell_monkey also at 512^2) and a random 2,500-face table; their
+walk counters (dense_cast_visits) cover
 the pairs blocked.leaf_pairs counts; the table-level intersect.cast_closest
 / cast_any launch only the flat kernels, which equal their plain versions
 at the edges of their register blocking (two rays a thread) and face
@@ -24,38 +31,53 @@ cornell_highpoly(nu=48, nv=24, accel='blocked') (2,560 faces, 5 blocks,
 a box tree of 80 leaves in 128 slots), at 64^2 camera rays and on a
 random ragged batch, and on a two-block table built for an exact key tie
 across blocks that the tree's nearest-first walk meets in the higher
-block first (_tie_table).
+block first (_tie_table); and on the benchmark's cornell_highpoly
+(101,782 faces, 199 blocks, a tree of depth 12: the walk's deepest
+stack).  The reference benchmark's capacity scene (305,942 faces)
+agrees with its float64 oracle and renders through the blocked casts.
 
 The path megakernel against its plain twin (the wavefront on the same
 uniforms) at 64x64, with tests/test_fused.py's tolerances: cornell and
 cornell_monkey >= 95% of paths within 1e-3 absolute and means within 2e-3
 relative; the textured, environment-lit and matball scenes (and a scene
 with every Disney lobe and both light kinds) >= 95% within 2e-2 relative
-to max(|ref|, 0.05) and means within 1e-2.  Half frames compose the full
-frame bit for bit.  The explicit-ray head (fused_trace) fed the primary
-head's camera rays and wanghash2(i, j) equals fused_trace_primary bit for
-bit, and its plain twin at the gate above.  blocked_cast_closest is the
-blocked shade pass's hit.  The megakernel's two casts walk the scene's box tree
+to max(|ref|, 0.05) and means within 1e-2; at depths 5 and 8.  Half
+frames compose the full frame bit for bit on every scene.  At the cells'
+512x512, cornell_monkey's megakernel meets its twin at the same gate and
+its half frames at x0 0 and 256 compose the full frame bit for bit.  The
+explicit-ray head (fused_trace) fed the primary head's camera rays and
+wanghash2(i, j) equals fused_trace_primary bit for bit, and its plain
+twin at the gate above.  blocked_cast_closest is the blocked shade
+pass's hit.  The megakernel's two casts walk the scene's box tree
 (fused_nodes): an exact key tie across leaves goes to the lower face id
 though the walk meets the higher first (_fused_tie_scene); its visit
 counters (fused_trace_visits) cover at least the pairs blocked.leaf_pairs
 counts on the twin's rays; a scene without its tree tables raises.
+
+Every route of the main path renders the stored 64x64 goldens within
+tests/test_parity.py's tolerances: cornell (64 spp) and cornell_monkey
+(96 spp) through the megakernel and the dense wavefront, and
+cornell_monkey rebuilt with accel='blocked' through the blocked casts.
 '''
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from ptina_tpu_torch.bench import oracle_agreement
 from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.engine import fused
 from ptina_tpu_torch.engine.path import (render, render_sample, pixel_grid,
                                          path_trace)
-from ptina_tpu_torch.film import new_film
+from ptina_tpu_torch.film import film_to_image, new_film
 from ptina_tpu_torch.intersect import blocked, dense_cast
 from ptina_tpu_torch.intersect.plucker import pack_faces
+from ptina_tpu_torch.io.encoding import decode_numpy_array
 from ptina_tpu_torch.utils import cuda_build
+from ptina_tpu_torch.utils.mathutils import sqrt as port_sqrt
 from ptina_tpu_torch.sampling import wanghash2
 from ptina_tpu_torch.sampling.sobol import (pixel_rotation, sample_dims,
                                             sobol_block)
@@ -67,6 +89,8 @@ from ptina_tpu_torch.scenes import (cornell_box, cornell_monkey,
                                     cornell_highpoly, envlight_scene, matball,
                                     BENCH_CAMERA)
 from ptina_tpu_torch.utils.vec import V3
+
+from torch_assets import assert_radiance_close, grew, launches
 
 pytestmark = pytest.mark.cuda
 
@@ -161,15 +185,89 @@ def test_kernels_match_plain(dev, name, n):
     _hold_dense(scene, *_rays(n, scene.face_coef.shape[0], dev))
 
 
+def _park_and_reach(ro, rd, tmax, seed):
+    '''Park 1% of the rays (origin 0, direction +z, tmax 0, as the
+    wavefront parks a finished path) and send 1% past the far clip
+    (tmax 3e6), in place.'''
+    g = torch.Generator().manual_seed(seed)
+    n = tmax.shape[0]
+    park = (torch.rand(n, generator=g) < 0.01).to(tmax.device)
+    far = (torch.rand(n, generator=g) < 0.01).to(tmax.device)
+    for c in (ro.x, ro.y, ro.z, rd.x, rd.y):
+        c[park] = 0.0
+    rd.z[park] = 1.0
+    tmax[park] = 0.0
+    tmax[far] = 3e6
+
+
+@pytest.mark.parametrize('name', sorted(SCENES))
+def test_kernels_match_plain_on_parked_and_far_rays(dev, name):
+    scene = SCENES[name](dev)
+    ro, rd, avoid, tmax = _rays(100_003, scene.face_coef.shape[0], dev,
+                                seed=20)
+    _park_and_reach(ro, rd, tmax, seed=20)
+    _hold_dense(scene, ro, rd, avoid, tmax)
+
+
+def _sqrt_values(n):
+    '''n float32 values from a seed: a quarter positive normals over every
+    exponent, a quarter subnormals, a quarter in [0.01, 100] (where the
+    shading and the face tables live), then the special values (0, -0, a
+    negative, the infinities, NaN, 1 +- ulp, the largest finite float)
+    and standard normals.'''
+    rng = np.random.default_rng(13)
+    q = n // 4
+
+    def bits(lo, hi):
+        return rng.integers(lo, hi, q, dtype=np.int64).astype(
+            np.uint32).view(np.float32)
+    one, big = np.float32(1.0), np.finfo(np.float32).max
+    special = np.array([0.0, -0.0, -1.0, -np.inf, np.inf, np.nan, big, one,
+                        np.nextafter(one, np.float32(2.0)),
+                        np.nextafter(one, np.float32(0.0))], np.float32)
+    rest = rng.standard_normal(n - 3 * q - special.size).astype(np.float32)
+    return np.concatenate([bits(0x00800000, 0x7f800000),
+                           bits(1, 0x00800000),
+                           rng.uniform(0.01, 100.0, q).astype(np.float32),
+                           special, rest])
+
+
+def test_square_roots_are_correctly_rounded(dev):
+    '''The lanes where a root differs from numpy's float64 root rounded
+    to float32 (a NaN lane agrees with any NaN): none.'''
+    x = _sqrt_values(1 << 20)
+    with np.errstate(invalid='ignore'):
+        want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    got = {'torch.sqrt on the card': torch.sqrt(xd).cpu().numpy(),
+           'mathutils.sqrt on the card': port_sqrt(xd).cpu().numpy(),
+           'mathutils.sqrt on the host': port_sqrt(torch.from_numpy(x))
+           .numpy()}
+    nan = np.isnan(want)
+    bad = {k: int(np.where(nan, ~np.isnan(v),
+                           v.view(np.int32) != want.view(np.int32)).sum())
+           for k, v in got.items()}
+    assert not any(bad.values()), bad
+
+
 @pytest.mark.parametrize('name', sorted(set(SCENES)
                                          - {'random_2500', 'small_56'}))
 def test_tree_kernels_match_plain_on_wavefront_rays(dev, name):
     '''The casts the wavefront makes: every bounce's closest cast (avoid
     the last hit, an original face id) and shadow cast of a 64x64 sample
     at depth 5.'''
-    scene = SCENES[name](dev)
+    _hold_wavefront_rays(SCENES[name](dev), 64)
+
+
+def test_tree_kernels_match_plain_on_wavefront_rays_at_512(dev):
+    '''The same on cornell_monkey at the cells' 512x512: 262,144 paths a
+    bounce.'''
+    _hold_wavefront_rays(cornell_monkey(device=dev), 512)
+
+
+def _hold_wavefront_rays(scene, res):
     lanes = []
-    fused.fused_trace_primary_plain(scene, sobol_block(9, 32), 64, 64,
+    fused.fused_trace_primary_plain(scene, sobol_block(9, 32), res, res,
                                     lanes=lanes)
     for lane in lanes:
         _hold_dense(scene, lane['ro'], lane['rd'], lane['avoid'],
@@ -208,12 +306,11 @@ def test_dense_visits_and_pair_count(dev, name):
     ro, rd, avoid, tmax = _rays(1001, scene.face_coef.shape[0], dev)
     tmax[:16] = 0.0
     c, at = scene.face_coef, scene.face_attr
-    before = dict(dense_cast.LAUNCHES)
+    before = launches()
     shade, occ = dense_cast.dense_cast_visits(ro, rd, avoid, tmax, c, at,
                                               *_tree(scene))
     hit, _ = dense_cast.cast_shade(ro, rd, avoid, c, at, *_tree(scene))
-    assert dense_cast.LAUNCHES['shade'] - before['shade'] == 2
-    assert dense_cast.LAUNCHES['any'] - before['any'] == 1
+    assert grew(before) == {'shade': 2, 'any': 1}
     if name == 'cornell':
         assert (shade[:, 0] == 0).all() and (shade[:, 1] == 2).all()
     else:
@@ -234,7 +331,7 @@ def test_tree_kernels_raise_without_their_tree(dev):
     misaligned = torch.empty(f * 16 + 1, device=dev)[1:].view(f, 16)
     misaligned.copy_(scene.fused_coef)
     coef, nodes, order = _tree(scene)
-    before = dict(dense_cast.LAUNCHES)
+    before = launches()
     for name, tree in (('tree_nodes', (coef, None, order)),
                        ('tree_nodes', (coef, nodes[:4], order)),
                        ('tree_order', (coef, nodes, order.cpu())),
@@ -244,7 +341,7 @@ def test_tree_kernels_raise_without_their_tree(dev):
                                   scene.face_attr, *tree)
         with pytest.raises(ValueError, match=name):
             dense_cast.cast_any(ro, rd, avoid, tmax, scene.face_coef, *tree)
-    assert dense_cast.LAUNCHES == before
+    assert grew(before) == {}
 
 
 def test_table_level_casts_launch_flat_kernels(dev):
@@ -253,12 +350,10 @@ def test_table_level_casts_launch_flat_kernels(dev):
     from ptina_tpu_torch import intersect
     scene = cornell_monkey(device=dev)
     ro, rd, avoid, tmax = _rays(4099, scene.face_coef.shape[0], dev)
-    before = dict(dense_cast.LAUNCHES)
+    before = launches()
     hit = intersect.cast_closest(ro, rd, scene.tri_w2b, avoid)
     occ = intersect.cast_any(ro, rd, scene.tri_w2b, avoid, tmax)
-    torch.cuda.synchronize()
-    grew = {k: v - before[k] for k, v in dense_cast.LAUNCHES.items()}
-    assert grew == {'shade': 0, 'any': 0, 'closest': 1, 'any_flat': 1}
+    assert grew(before) == {'closest': 1, 'any_flat': 1}
     _assert_same_hit(hit, dense_cast.cast_closest_plain(ro, rd, avoid,
                                                         scene.face_coef))
     assert torch.equal(occ, dense_cast.cast_any_plain(ro, rd, avoid, tmax,
@@ -361,15 +456,15 @@ def test_explicit_ray_head(dev):
         y = (jj.to(torch.float32) + u[1]) / res * 2.0 - 1.0
         ro, rd = camera_rays(scene.cam_v2w, x, y)
         base = wanghash2(ii, jj).to(torch.int32)
-        before = fused.LAUNCHES['path']
+        before = launches()
         k = fused.fused_trace(scene, ro, rd, pt, base)
-        assert fused.LAUNCHES['path'] - before == 1
+        assert grew(before) == {'path': 1}
         prim = fused.fused_trace_primary(scene, pt, res, res)
         p = fused.fused_trace_plain(scene, ro, rd, pt, base)
         torch.cuda.synchronize()
         for c in 'xyz':
             assert torch.equal(getattr(k, c), getattr(prim, c)), name
-        _assert_close(k, p, relative)
+        assert_radiance_close(k, p, relative)
     with pytest.raises(ValueError, match='base'):
         fused.fused_trace(scene, ro, rd, pt, base.to(torch.int64))
 
@@ -379,10 +474,9 @@ def test_blocked_closest_is_the_shade_hit(dev):
     ro, rd, avoid, _ = _rays(10_007, scene.face_coef.shape[0], dev, seed=4)
     tables = (scene.face_coef, scene.face_attr, scene.block_bounds,
               scene.node_bounds)
-    before = dict(blocked.LAUNCHES)
+    before = launches()
     hit = blocked.blocked_cast_closest(ro, rd, avoid, *tables)
-    torch.cuda.synchronize()
-    assert blocked.LAUNCHES['blocked_shade'] - before['blocked_shade'] == 1
+    assert grew(before) == {'blocked_shade': 1}
     _assert_same_hit(hit, blocked.blocked_cast_shade(ro, rd, avoid,
                                                      *tables)[0])
     _assert_same_hit(hit, blocked.blocked_cast_shade_plain(ro, rd, avoid,
@@ -482,6 +576,25 @@ def test_blocked_kernels_match_plain(dev, rays):
         ro, rd, avoid, tmax = _camera_rays(scene, 64, dev)
     else:
         ro, rd, avoid, tmax = _rays(1001, scene.face_coef.shape[0], dev)
+    _hold_blocked(scene, ro, rd, avoid, tmax)
+
+
+@pytest.mark.parametrize('rays', ['camera_64x64', 'random_100003'])
+def test_blocked_kernels_match_plain_on_cornell_highpoly(dev, rays):
+    scene = cornell_highpoly(device=dev)
+    assert scene.block_bounds.shape == (199, 8)
+    assert scene.node_bounds.shape == (8192, 8)
+    if rays == 'camera_64x64':
+        ro, rd, avoid, tmax = _camera_rays(scene, 64, dev)
+    else:
+        ro, rd, avoid, tmax = _rays(100_003, scene.face_coef.shape[0], dev,
+                                    seed=21)
+        _park_and_reach(ro, rd, tmax, seed=21)
+    _hold_blocked(scene, ro, rd, avoid, tmax)
+
+
+def _hold_blocked(scene, ro, rd, avoid, tmax):
+    '''The blocked kernels against their plain versions, bit for bit.'''
     args = (scene.face_coef, scene.face_attr, scene.block_bounds,
             scene.node_bounds)
     hk, ak = blocked.blocked_cast_shade(ro, rd, avoid, *args)
@@ -494,6 +607,22 @@ def test_blocked_kernels_match_plain(dev, rays):
     _assert_same_hit(hk, hp)
     assert torch.equal(ak, ap)
     assert torch.equal(ok, op)
+
+
+def test_capacity_scene(dev):
+    '''The reference benchmark's capacity check (root bench.py:173-216)
+    at its size, which is the point: cornell_highpoly(nu=640, nv=240),
+    305,942 faces in 598 blocks.  Its 32 seeded rays agree with the
+    float64 oracle on >= 31 (t within 2e-3 relative), and it renders at
+    64x64 x 2 spp through the blocked casts alone.'''
+    scene = cornell_highpoly(nu=640, nv=240, device=dev)
+    assert int(scene.nfaces) == 305_942
+    assert scene.block_bounds.shape == (598, 8)
+    assert oracle_agreement(scene) >= 31
+    before = launches()
+    film = render(scene, new_film(64, 64, device=dev), 0, spp=2)
+    assert bool(torch.isfinite(film).all()) and bool((film[0, 3] == 2).all())
+    assert grew(before) == {'blocked_shade': 10, 'blocked_any': 10}
 
 
 def test_blocked_kernels_cross_block_tie(dev):
@@ -562,13 +691,13 @@ def test_blocked_build_or_launch_failure_raises(dev, monkeypatch):
 
         ptina_blocked_cast_any = ptina_blocked_cast_shade
     monkeypatch.setattr(blocked, 'build_library', lambda: (FailingLib, ''))
-    before = dict(blocked.LAUNCHES)
+    before = launches()
     with pytest.raises(RuntimeError, match='blocked_shade_kernel'):
         blocked.blocked_cast_shade(*shade)
     with pytest.raises(RuntimeError, match='blocked_any_kernel'):
         blocked.blocked_cast_any(ro, rd, avoid, tmax, scene.face_coef,
                                  scene.block_bounds, scene.node_bounds)
-    assert blocked.LAUNCHES == before
+    assert grew(before) == {}
 
 
 def test_render_launches_blocked_kernels(dev):
@@ -577,14 +706,10 @@ def test_render_launches_blocked_kernels(dev):
     megakernel launch.'''
     scene = _blocked_scene(dev)
     assert not fused.fused_eligible(scene)
-    counts = (dense_cast.LAUNCHES, blocked.LAUNCHES, fused.LAUNCHES)
-    before = [dict(c) for c in counts]
+    before = launches()
     film = render(scene, new_film(64, 64, device=dev), 0, spp=2)
-    torch.cuda.synchronize()
     assert bool(torch.isfinite(film).all())
-    grew = [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)]
-    assert grew == [{'shade': 0, 'any': 0, 'closest': 0, 'any_flat': 0},
-                    {'blocked_shade': 10, 'blocked_any': 10}, {'path': 0}]
+    assert grew(before) == {'blocked_shade': 10, 'blocked_any': 10}
 
 
 @pytest.mark.parametrize('depth', [5, 8])
@@ -592,18 +717,14 @@ def test_render_launches_kernels(dev, depth):
     '''The wavefront route launches both tree casts once per bounce, and
     no flat cast; a non-Disney model takes it under fused=True too.'''
     for scene in (cornell_box(device=dev), cornell_monkey(device=dev)):
-        before = dict(dense_cast.LAUNCHES), fused.LAUNCHES['path']
+        before = launches()
         film = new_film(64, 64, device=dev)
         for s in range(2):
             render_sample(scene, film, s, fused=False, max_depth=depth)
         render_sample(scene, film, 2, fused=True, model='lambert',
                       max_depth=depth)
-        torch.cuda.synchronize()
         assert bool(torch.isfinite(film).all())
-        grew = {k: v - before[0][k] for k, v in dense_cast.LAUNCHES.items()}
-        assert grew == {'shade': 3 * depth, 'any': 3 * depth, 'closest': 0,
-                        'any_flat': 0}
-        assert fused.LAUNCHES['path'] == before[1]
+        assert grew(before) == {'shade': 3 * depth, 'any': 3 * depth}
 
 
 def _texture():
@@ -654,22 +775,6 @@ MEGA = {'cornell': (lambda d: cornell_box(device=d), False),
         'all_lobes': (_all_lobes_scene, True)}
 
 
-def _assert_close(k, p, relative):
-    k = torch.stack([k.x, k.y, k.z])
-    p = torch.stack([p.x, p.y, p.z])
-    assert bool(torch.isfinite(k).all())
-    if relative:
-        d = ((k - p).abs() / torch.clamp_min(p.abs(), 0.05)).amax(0)
-        assert (d < 2e-2).float().mean().item() > 0.95
-        assert abs(k.mean().item() - p.mean().item()) \
-            < 1e-2 * max(p.mean().item(), 1e-6)
-    else:
-        d = (k - p).abs().amax(0)
-        assert (d < 1e-3).float().mean().item() > 0.95
-        assert abs(k.mean().item() - p.mean().item()) \
-            < 2e-3 * max(p.mean().item(), 1e-6)
-
-
 @pytest.mark.parametrize('name', sorted(MEGA))
 def test_megakernel_matches_twin(dev, name):
     make, relative = MEGA[name]
@@ -681,7 +786,7 @@ def test_megakernel_matches_twin(dev, name):
         k = fused.fused_trace_primary(scene, pt, res, res)
         p = fused.fused_trace_primary_plain(scene, pt, res, res)
         torch.cuda.synchronize()
-        _assert_close(k, p, relative)
+        assert_radiance_close(k, p, relative)
     # the explicit-uniform head on the same rays and uniforms
     ii, jj = pixel_grid(res, res, device=dev)
     u = sample_dims(3, ii, jj, 32)
@@ -691,7 +796,7 @@ def test_megakernel_matches_twin(dev, name):
     k = fused.fused_trace_uniforms(scene, ro, rd, u)
     p = fused.fused_trace_uniforms_plain(scene, ro, rd, u)
     torch.cuda.synchronize()
-    _assert_close(k, p, relative)
+    assert_radiance_close(k, p, relative)
 
 
 @pytest.mark.parametrize('name', sorted(MEGA))
@@ -703,11 +808,12 @@ def test_megakernel_depth_8_matches_twin(dev, name):
     k = fused.fused_trace_primary(scene, pt, 64, 64)
     p = fused.fused_trace_primary_plain(scene, pt, 64, 64)
     torch.cuda.synchronize()
-    _assert_close(k, p, relative)
+    assert_radiance_close(k, p, relative)
 
 
-def test_megakernel_half_frames(dev):
-    scene = matball(roughness_tex=_texture(), device=dev)
+@pytest.mark.parametrize('name', sorted(MEGA))
+def test_megakernel_half_frames(dev, name):
+    scene = MEGA[name][0](dev)
     pt = sobol_block(5, 32)
     full = fused.fused_trace_primary(scene, pt, 64, 64)
     top = fused.fused_trace_primary(scene, pt, 32, 64, x0=0, fnx=64, fny=64)
@@ -715,6 +821,23 @@ def test_megakernel_half_frames(dev):
     for c in 'xyz':
         assert torch.equal(getattr(full, c),
                            torch.cat([getattr(top, c), getattr(bot, c)]))
+
+
+def test_megakernel_at_512(dev):
+    '''cornell_monkey at the cells' 512x512, one sample: the megakernel
+    against its twin, and the half frames at x0 0 and 256 composing the
+    full frame bit for bit.'''
+    scene = cornell_monkey(device=dev)
+    pt = sobol_block(0, 32)
+    full = fused.fused_trace_primary(scene, pt, 512, 512)
+    assert_radiance_close(full, fused.fused_trace_primary_plain(
+        scene, pt, 512, 512), relative=False)
+    halves = [fused.fused_trace_primary(scene, pt, 256, 512, x0=x0,
+                                        fnx=512, fny=512)
+              for x0 in (0, 256)]
+    for c in 'xyz':
+        assert torch.equal(getattr(full, c),
+                           torch.cat([getattr(h, c) for h in halves]))
 
 
 def test_megakernel_ragged_offset_tile(dev):
@@ -728,19 +851,19 @@ def test_megakernel_ragged_offset_tile(dev):
     p = fused.fused_trace_primary_plain(scene, pt, 37, 29, **kw)
     torch.cuda.synchronize()
     assert k.x.shape == (37 * 29,)
-    _assert_close(k, p, relative=False)
+    assert_radiance_close(k, p, relative=False)
 
 
-def test_render_launches_megakernel(dev):
+@pytest.mark.parametrize('depth', [5, 8])
+def test_render_launches_megakernel(dev, depth):
     '''An eligible scene renders through the megakernel: one launch per
     sample and no cast launches.'''
     scene = cornell_monkey(device=dev)
-    before = (fused.LAUNCHES['path'], dict(dense_cast.LAUNCHES))
-    film = render(scene, new_film(64, 64, device=dev), 0, spp=3)
-    torch.cuda.synchronize()
+    before = launches()
+    film = render(scene, new_film(64, 64, device=dev), 0, spp=3,
+                  max_depth=depth)
     assert bool(torch.isfinite(film).all()) and bool((film[0, 3] == 3).all())
-    assert fused.LAUNCHES['path'] - before[0] == 3
-    assert dict(dense_cast.LAUNCHES) == before[1]
+    assert grew(before) == {'path': 3}
 
 
 def test_megakernel_raises_for_ineligible_scene(dev):
@@ -768,7 +891,7 @@ def test_megakernel_cross_leaf_tie(dev):
     torch.cuda.synchronize()
     assert (lanes[0]['hit'].index == 3).all()
     assert (k.x > k.y).all()
-    _assert_close(k, p, relative=False)
+    assert_radiance_close(k, p, relative=False)
 
 
 def test_megakernel_visit_counters(dev):
@@ -779,13 +902,13 @@ def test_megakernel_visit_counters(dev):
     their hit, clear shadow rays up to tmax).'''
     scene = cornell_monkey(device=dev)
     pt = sobol_block(9, 32)
-    before = fused.LAUNCHES['path']
+    before = launches()
     rad, vis = fused.fused_trace_visits(scene, pt, 64, 64)
     ref = fused.fused_trace_primary(scene, pt, 64, 64)
+    assert grew(before) == {'path': 2}
     lanes = []
     fused.fused_trace_primary_plain(scene, pt, 64, 64, lanes=lanes)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES['path'] - before == 2
     assert torch.equal(_stack3(rad), _stack3(ref))
     assert vis.shape == (64 * 64, 5, 2, 2)
     nf, nodes = int(scene.nfaces), scene.fused_nodes
@@ -815,7 +938,7 @@ def test_megakernel_raises_without_its_tree(dev):
     misaligned = torch.empty(f * 16 + 1, device=dev)[1:].view(f, 16)
     misaligned.copy_(scene.fused_coef)
     pt = sobol_block(0, 32)
-    before = fused.LAUNCHES['path']
+    before = launches()
     for name, bad in (('fused_nodes', None), ('fused_order', None),
                       ('fused_nodes', scene.fused_nodes[:2]),
                       ('fused_order', scene.fused_order.long()),
@@ -824,4 +947,44 @@ def test_megakernel_raises_without_its_tree(dev):
         broken = dataclasses.replace(scene, **{name: bad})
         with pytest.raises(ValueError, match=name):
             fused.fused_trace_primary(broken, pt, 8, 8)
-    assert fused.LAUNCHES['path'] == before
+    assert grew(before) == {}
+
+
+# tests/test_parity.py's goldens: (spp, mean tolerance, patch tolerance)
+GOLDENS = {'cornell': (64, 0.015, 0.05), 'cornell_monkey': (96, 0.015, 0.06)}
+# the launch count each route must raise, and no other route's
+ROUTE_KEYS = {'megakernel': 'path', 'wavefront': 'shade',
+              'blocked': 'blocked_shade'}
+
+
+def _blur(img, k=2):
+    h, w, c = img.shape
+    return img.reshape(h // (2 * k), 2 * k, w // (2 * k), 2 * k, c) \
+              .mean(axis=(1, 3))
+
+
+@pytest.mark.parametrize('name,route', [
+    ('cornell', 'megakernel'), ('cornell', 'wavefront'),
+    ('cornell_monkey', 'megakernel'), ('cornell_monkey', 'wavefront'),
+    ('cornell_monkey', 'blocked')])
+def test_golden_through_each_route(dev, name, route):
+    spp, mean_tol, patch_tol = GOLDENS[name]
+    with open(os.path.join(os.path.dirname(__file__), 'golden',
+                           f'{name}_64x64_512spp.txt')) as fh:
+        gold = decode_numpy_array(fh.read())
+    if route == 'blocked':
+        scene = cornell_monkey(device=dev, accel='blocked')
+    else:
+        scene = SCENES[name](dev)
+    before = launches()
+    film = new_film(64, 64, device=dev)
+    if route == 'wavefront':
+        for s in range(spp):
+            render_sample(scene, film, s, fused=False)
+    else:
+        film = render(scene, film, 0, spp=spp)
+    assert set(grew(before)) & set(ROUTE_KEYS.values()) == {ROUTE_KEYS[route]}
+    img = film_to_image(film)[..., :3].cpu().numpy()
+    assert abs(img.mean() - gold.mean()) / gold.mean() < mean_tol
+    patch = (np.abs(_blur(img) - _blur(gold)) / (_blur(gold) + 0.05)).mean()
+    assert patch < patch_tol

@@ -12,30 +12,46 @@ with the card:
     (a small cornell_highpoly), with each band's launches;
   * train_step_sharded's gradient on the card equals the one-band
     gradient of the same loss (rtol 1e-3, as tests/test_sharding.py);
-  * lbvh_build on the card equals its build on the CPU array by array,
-    and its traversal agrees with brute on the card.
+    each band launches its casts and material_rows once a bounce, and
+    two steps toward the wall at half its basecolor lower the loss;
+  * the two-process launcher (python -m ptina_tpu_torch.parallel, two
+    ranks on the card): each band and the gathered film equal a
+    one-process render bit for bit, no collective runs while rendering,
+    and the gradient all-reduce equals the in-process mean;
+  * lbvh_build on the card equals its build on the CPU array by array
+    (which tests/test_torch_lbvh.py holds to JAX's, whose tree
+    tests/test_lbvh.py holds to its invariants), and its traversal
+    agrees with brute on the card: cornell_monkey, envlight and
+    cornell_highpoly.
 '''
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from ptina_tpu_torch.engine import fused
+from ptina_tpu_torch.diff import render_image_diff
 from ptina_tpu_torch.engine.path import render, render_sample
 from ptina_tpu_torch.film import film_to_image, new_film
-from ptina_tpu_torch.intersect import blocked, dense_cast
 from ptina_tpu_torch.intersect.brute import cast_closest
 from ptina_tpu_torch.intersect.lbvh import lbvh_build, lbvh_traverse
 from ptina_tpu_torch.parallel import (make_mesh, render_sharded,
                                       train_step_sharded)
 from ptina_tpu_torch.scene import with_tensor
 from ptina_tpu_torch.scenes import (cornell_box, cornell_highpoly,
-                                    cornell_monkey)
+                                    cornell_monkey, envlight_scene)
 from ptina_tpu_torch.utils.vec import V3
+
+from torch_assets import grew, launches
 
 pytestmark = pytest.mark.cuda
 
 RES = 64
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -43,15 +59,6 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (CUDA kernels have no CPU mode)')
     return torch.device('cuda', 0)
-
-
-def _launches():
-    return {**dense_cast.LAUNCHES, **fused.LAUNCHES, **blocked.LAUNCHES}
-
-
-def _grew(before):
-    torch.cuda.synchronize()
-    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
 
 
 @pytest.mark.parametrize('wavefront', [False, True],
@@ -62,10 +69,10 @@ def test_spb_is_bit_equal(dev, wavefront):
         films = [render(scene, new_film(RES, RES, device=dev), 0, spp=8,
                         spb=spb, model='lambert') for spb in (1, 3, 8)]
     else:
-        before = _launches()
+        before = launches()
         films = [render(scene, new_film(RES, RES, device=dev), 0, spp=8,
                         spb=spb) for spb in (1, 3, 8)]
-        assert _grew(before) == {'path': 24}
+        assert grew(before) == {'path': 24}
     assert all(torch.equal(films[0], f) for f in films[1:])
 
 
@@ -77,21 +84,21 @@ def test_bands_equal_render(dev, fused_route):
     ref = new_film(RES, RES, device=dev)
     for s in range(2):
         render_sample(scene, ref, s, fused=fused_route)
-    before = _launches()
+    before = launches()
     film = render_sharded(scene, new_film(RES, RES, device=dev), 0, mesh,
                           spp=2, fused=fused_route)
     want = {'path': 8} if fused_route is None else {'shade': 40, 'any': 40}
-    assert _grew(before) == want
+    assert grew(before) == want
     assert torch.equal(film, ref)
 
 
 def test_blocked_bands_equal_render(dev):
     scene = cornell_highpoly(nu=48, nv=24, accel='blocked', device=dev)
     ref = render(scene, new_film(RES, RES, device=dev), 0, spp=1)
-    before = _launches()
+    before = launches()
     film = render_sharded(scene, new_film(RES, RES, device=dev), 0,
                           make_mesh([dev] * 4))
-    assert _grew(before) == {'blocked_shade': 20, 'blocked_any': 20}
+    assert grew(before) == {'blocked_shade': 20, 'blocked_any': 20}
     assert torch.equal(film, ref)
 
 
@@ -112,8 +119,11 @@ def test_sharded_gradient_equals_one_band(dev):
                           atol=1e-6 * g1.abs().max().item())
 
 
-def test_lbvh_on_the_card(dev):
-    scene = cornell_monkey(device=dev)
+@pytest.mark.parametrize('name', ['cornell_monkey', 'envlight',
+                                  'cornell_highpoly'])
+def test_lbvh_on_the_card(dev, name):
+    scene = {'cornell_monkey': cornell_monkey, 'envlight': envlight_scene,
+             'cornell_highpoly': cornell_highpoly}[name](device=dev)
     nf = int(scene.nfaces)
     tris = scene.tri_pos[:nf]
     got = lbvh_build(tris)
@@ -132,3 +142,36 @@ def test_lbvh_on_the_card(dev):
     assert same.float().mean().item() > 0.97
     hits = hb.hit & same
     assert torch.allclose(hb.t[hits], ht.t[hits], rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_steps_descend(dev):
+    scene = cornell_monkey(device=dev)
+    fac = scene.materials.fac.clone()
+    fac[0, 0, :3] *= 0.5
+    with torch.no_grad():
+        target = render_image_diff(with_tensor(scene, ('materials', 'fac'),
+                                               fac), RES, RES)
+    mesh = make_mesh([dev] * 4)
+    film0 = new_film(RES, RES, device=dev)
+    before = launches()
+    s1, l1 = train_step_sharded(scene, film0, target, 0, mesh, lr=1.0)
+    assert grew(before) == {'shade': 20, 'any': 20, 'material_rows': 20}
+    _, l2 = train_step_sharded(s1, film0, target, 0, mesh, lr=1.0)
+    assert l2.item() < l1.item()
+
+
+def test_two_process_launcher_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (CUDA kernels have no CPU mode)')
+    r = subprocess.run(
+        [sys.executable, '-m', 'ptina_tpu_torch.parallel', '--res', str(RES),
+         '--spp', '2', '--device', 'cuda', '--timeout', '300'],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    out = json.loads([line for line in r.stdout.splitlines()
+                      if line.startswith('{')][-1])
+    assert out['world_sizes_seen'] == [2, 2]
+    assert all(d.startswith('cuda') for d in out['devices'])
+    assert out['band_equal'] is True and out['gathered_equal'] is True
+    assert out['render_collectives'] == 0
+    assert out['grad_allclose'] is True

@@ -23,7 +23,7 @@ Here, on the CPU:
   * an exact key tie across leaves returns the lower id's attributes;
   * the tree tables are validated: a missing or misshapen one raises.
 The kernels themselves are held to these plain versions bit for bit on
-the card (tests/test_torch_cuda_kernels.py, chip_smoke.py).
+the card (tests/test_torch_cuda_kernels.py).
 '''
 
 import numpy as np
@@ -52,7 +52,7 @@ _BUILT = {}
 
 
 def _random_2504():
-    '''chip_smoke.py's random table: 2,500 random triangles, 2,504
+    '''chip_compare.py's random table: 2,500 random triangles, 2,504
     padded.'''
     rng = np.random.RandomState(3)
     nf = 2500

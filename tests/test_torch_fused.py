@@ -2,7 +2,7 @@
 The port's path megakernel entries (ptina_tpu_torch.engine.fused) against
 the JAX package, on the CPU, where each entry runs its plain twin (the
 CUDA kernel itself is held against the twin on the card:
-tests/test_torch_cuda_kernels.py, chip_smoke.py).
+tests/test_torch_cuda_kernels.py).
 
 Port vs JAX, the same scene arrays and the same Sobol point:
   * fused_trace_primary on cornell_box and the textured cornell at 16x16

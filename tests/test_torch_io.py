@@ -3,7 +3,7 @@ The PyTorch port's scene front-ends (ptina_tpu_torch.io) on the CPU,
 against the JAX reference's (ptina_tpu.io):
 
   * readgltf on tests/test_gltf.py's triangle (.gltf and .glb) and on
-    assets built here with chip_smoke.write_gltf: data-URI, external .bin
+    assets built here with torch_assets.write_gltf: data-URI, external .bin
     and .glb buffers, byteStride views, TRS and `matrix` node
     hierarchies, a missing NORMAL, uint8 / 16 / 32 indices and none, and
     PNG textures of every colour type: every returned array equal to
@@ -45,13 +45,10 @@ from ptina_tpu_torch import worker
 from ptina_tpu_torch.io import _png, readobj
 from ptina_tpu_torch.io.multimesh import compose_multiple_meshes
 from ptina_tpu_torch.io.readgltf import readgltf
-from ptina_tpu_torch.scenes import cornell_box_vertices
+from ptina_tpu_torch.scenes import (_blob_parts, _materials,
+                                    cornell_box_vertices)
 from test_gltf import _tri_gltf
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import chip_smoke  # noqa: E402  (the glTF / PLY / OBJ writers)
+import torch_assets
 
 torch.set_num_threads(2)
 
@@ -134,22 +131,22 @@ def _case(name, tmp_path, rng):
     '''(path, asset written there) for each readgltf case.'''
     if name.startswith('monkey'):
         mode = name.split('_')[1]
-        meshes, nodes, gl, _ = chip_smoke.monkey_asset()
+        meshes, nodes, gl, _ = torch_assets.monkey_asset()
         path = str(tmp_path / ('monkey.glb' if mode == 'glb'
                                else 'monkey.gltf'))
-        chip_smoke.write_gltf(path, meshes, nodes, gl, mode=mode)
+        torch_assets.write_gltf(path, meshes, nodes, gl, mode=mode)
         return path
     if name == 'small_prims':
         path = str(tmp_path / 'small.gltf')
-        gl, _ = chip_smoke.gl_materials(chip_smoke._materials()[:2])
-        chip_smoke.write_gltf(path, _small_prims(rng), _small_nodes(), gl,
+        gl, _ = torch_assets.gl_materials(_materials()[:2])
+        torch_assets.write_gltf(path, _small_prims(rng), _small_nodes(), gl,
                               mode='external')
         return path
     if name == 'matball_png':
-        _, png = chip_smoke.ramp_png()
-        meshes, nodes, gl, _, images = chip_smoke.matball_asset(png)
+        _, png = torch_assets.ramp_png()
+        meshes, nodes, gl, _, images = torch_assets.matball_asset(png)
         path = str(tmp_path / 'matball.glb')
-        chip_smoke.write_gltf(path, meshes, nodes, gl, images, mode='glb')
+        torch_assets.write_gltf(path, meshes, nodes, gl, images, mode='glb')
         return path
     # textures of every PNG colour type, the base colour and the
     # metallicRoughness textures of two materials
@@ -161,7 +158,7 @@ def _case(name, tmp_path, rng):
                                     'baseColorTexture': {'index': 3},
                                     'metallicRoughnessTexture': {'index': 4}}}]
     path = str(tmp_path / 'textured.gltf')
-    chip_smoke.write_gltf(path, _small_prims(rng), _small_nodes(), gl, pngs)
+    torch_assets.write_gltf(path, _small_prims(rng), _small_nodes(), gl, pngs)
     return path
 
 
@@ -182,7 +179,7 @@ def test_readgltf_non_png_image_needs_pil(tmp_path, monkeypatch):
     rng = np.random.RandomState(2)
     gl = [{'pbrMetallicRoughness': {'baseColorTexture': {'index': 0}}}]
     path = str(tmp_path / 'jpeg.gltf')
-    chip_smoke.write_gltf(path, _small_prims(rng), _small_nodes(), gl,
+    torch_assets.write_gltf(path, _small_prims(rng), _small_nodes(), gl,
                           [buf.getvalue()])
     _same_gltf(readgltf(path), jreadgltf(path))
     monkeypatch.setitem(sys.modules, 'PIL', None)
@@ -347,9 +344,9 @@ def test_readply_matches_reference(source, binary, tmp_path):
     if source == 'polygons':
         _ply_polygons(path, binary)
     else:
-        verts = chip_smoke._blob_parts(12, 6)[1][0]
+        verts = _blob_parts(12, 6)[1][0]
         v, f = np.unique(verts[:, :3], axis=0, return_inverse=True)
-        chip_smoke.write_ply(path, v, f.reshape(-1, 3), binary)
+        torch_assets.write_ply(path, v, f.reshape(-1, 3), binary)
     got, ref = readobj.readply(path), jreadobj.readply(path)
     assert got.keys() == ref.keys()
     for k in ('v', 'vt', 'vn', 'f'):
@@ -362,10 +359,10 @@ def test_readply_matches_reference(source, binary, tmp_path):
 
 
 def test_writeobj_and_obj_mtlids_match_reference(tmp_path):
-    (sv, sm), (bv, bm), (xv, xm) = chip_smoke._blob_parts(8, 4)
+    (sv, sm), (bv, bm), (xv, xm) = _blob_parts(8, 4)
     verts = np.concatenate([sv, bv, xv])
     mtlids = np.concatenate([sm, bm, xm])
-    obj = chip_smoke.obj_of_vertices(verts, mtlids)
+    obj = torch_assets.obj_of_vertices(verts, mtlids)
     paths = [str(tmp_path / 'port.obj'), str(tmp_path / 'ref.obj')]
     readobj.writeobj(paths[0], obj)
     jreadobj.writeobj(paths[1], obj)
@@ -406,7 +403,7 @@ def test_gltf_render_through_worker_matches_reference(name, tmp_path):
     for w, kw in ((jworker, {}), (worker, {'device': 'cpu'})):
         w.init(**kw)
         v, m, mats, images = (jreadgltf if w is jworker else readgltf)(path)
-        chip_smoke.load_worker(w, v, m, mats, images, res=8)
+        torch_assets.load_worker(w, v, m, mats, images, res=8)
         w.render()
         w.render()
     ref, got = jworker.get_image(), worker.get_image()

@@ -14,8 +14,9 @@ The same comparison at max_depth 8 (50 Sobol dimensions, above the 32
 the port first embedded) on cornell_box at 16x16.
 
 Golden: tests/test_parity.py's tolerances (mean 1.5%, patch 5%) at 64 spp.
-cornell_monkey's golden (96 spp) runs on the GPU in chip_smoke.py: the
-CPU plain cast is too slow for it here.
+cornell_monkey's golden (96 spp) runs on the GPU, through every route
+(tests/test_torch_cuda_kernels.py): the CPU plain cast is too slow for
+it here.
 '''
 
 import os
@@ -135,7 +136,8 @@ def test_render_is_deterministic_and_progressive():
 def test_path_trace_counts_lanes_per_bounce():
     '''path_trace's lanes: per bounce, the paths alive at its closest cast
     and the paths that cast a shadow ray (the casts the megakernel makes,
-    chip_smoke.py's bound count) with those casts' rays and results,
+    whose walk counters tests/test_torch_cuda_kernels.py holds to these
+    rays) with those casts' rays and results,
     without changing the radiance.'''
     scene = tscenes.cornell_box(device='cpu')
     pt = sobol_block(9, PATH_DIMS)
