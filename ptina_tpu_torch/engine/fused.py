@@ -28,7 +28,9 @@ whose backward recomputes path_trace on the same uniforms under autograd
 and pulls the cotangent back to the rays and to every floating scene
 tensor that requires grad; the uniforms get none.  The kernel has no
 backward of its own: the gradients are the wavefront's, whose casts are
-detached (engine/path.py).
+detached (engine/path.py).  On the card the recompute replays its
+shading as CUDA graphs between the eager casts and material rows (the
+section above FusedTraceDiff); on the CPU it is path_trace itself.
 
 Each picks by the scene tensors' device and nothing else: CPU -> the
 plain twin; CUDA -> the kernel, or an exception (an ineligible scene, a
@@ -69,6 +71,8 @@ same counters into a trace.walk_buffer('path_kernel', ...), counted on
 the device.
 '''
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -449,6 +453,347 @@ def _versions(scene):
     return [t._version for _, t in _scene_tensors(scene)]
 
 
+# The recompute's shading as CUDA graphs.  A bounce of path_trace is its
+# closest cast, its material rows, shading segment A, its shadow cast and
+# shading segment B (engine/path._bounce).  The casts and the rows hold
+# the hand-written kernels and their backwards; the segments are plain
+# torch on fixed shapes, a few hundred small ops each, and on the card
+# the pair's backward runs each segment as a CUDA graph pair: a forward
+# graph captured at the segment's first call, a backward graph at its
+# first backward, both replayed under autograd (_Shade) from then on.
+# The casts and the rows stay eager, each kernel with its wrapper, its
+# spans, its counters and its launch count.
+#
+# A segment reads static input buffers: its own, which each call copies
+# its inputs into, or, for an input that an earlier segment made, that
+# segment's output where it lies.  The scene tensors a segment reads
+# (fn.reads: the lights and the world factor) are inputs too, so every
+# step's new scene replays.  The gradients are autograd's bits: a graph
+# replays the kernels of the eager recompute on the same values, and the
+# sums autograd makes across segments keep their eager order because an
+# input a later segment reads again is passed on as a copy made at the
+# segment's end (its gradient arrives first, as the later consumers'
+# does in the eager graph), the scene tensors that need a gradient among
+# them; a backward graph starts from the outputs that get a gradient, as
+# autograd's own backward of the segment does, and after the first
+# backward an input that never gets one is passed without its edge.
+#
+# Captures are keyed on what the capture depends on (_graphed: the lanes,
+# the depth, the rays' and every scene tensor's shape, dtype and
+# requires_grad, the scene's other fields), a key's graphs sharing one
+# memory pool, replayed in the order they were captured.  A scene with a
+# textured environment recomputes eagerly: its world_at holds a texel
+# gather.  Spans: each segment call is one `grad.shade`, a replay one
+# `grad.shade.replay` inside it, a capture one `grad.graph_capture`.
+
+def _scene_layout(scene, path=()):
+    '''What the recompute's graphs depend on of a scene: (path, shape,
+    dtype, requires_grad) of each tensor, (path, value) of each other
+    field.'''
+    out = []
+    for f in dataclasses.fields(scene):
+        v, p = getattr(scene, f.name), path + (f.name,)
+        if dataclasses.is_dataclass(v):
+            out += _scene_layout(v, p)
+        elif isinstance(v, torch.Tensor):
+            out.append((p, v.shape, v.dtype, v.requires_grad))
+        else:
+            out.append((p, v))
+    return tuple(out)
+
+
+def _at(scene, path):
+    for name in path:
+        scene = getattr(scene, name)
+    return scene
+
+
+def _flatten(obj, leaves):
+    '''Append the tensors of obj (a tensor, a V3, or a dict of them,
+    nested) to leaves in a fixed order; returns obj's structure for
+    _unflatten.'''
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return None
+    if isinstance(obj, V3):
+        return ('v3', tuple(_flatten(c, leaves)
+                            for c in (obj.x, obj.y, obj.z)))
+    return ('dict', tuple((k, _flatten(v, leaves)) for k, v in obj.items()))
+
+
+def _unflatten(spec, it):
+    if spec is None:
+        return next(it)
+    kind, parts = spec
+    if kind == 'v3':
+        return V3(*(_unflatten(p, it) for p in parts))
+    return {k: _unflatten(p, it) for k, p in parts}
+
+
+def _unique(leaves):
+    '''(the distinct tensors of leaves, each leaf's index among them).'''
+    at, uniq, index = {}, [], []
+    for t in leaves:
+        i = at.get(id(t))
+        if i is None:
+            i = at[id(t)] = len(uniq)
+            uniq.append(t)
+        index.append(i)
+    return uniq, tuple(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device):
+    '''The stream the segments warm up and capture on, one a device.'''
+    return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool):
+    '''Capture the block's work into graph, its memory from pool, on the
+    side stream: as torch.cuda.graph, without its synchronize and its
+    emptying of the allocator's cache at every capture.'''
+    side = _side_stream(torch.cuda.current_device())
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool, capture_error_mode='thread_local')
+        try:
+            yield
+        finally:
+            graph.capture_end()
+
+
+def _graph_copy(dst, src):
+    if dst:
+        with torch.no_grad():
+            torch._foreach_copy_(dst, src)
+
+
+class _Segment:
+    '''One shading segment of the recompute as CUDA graphs: fn(scene, s,
+    *static) over static input buffers (the section above).'''
+
+    def __init__(self, owner, fn, scene, paths, spec, index, ins, static):
+        self.paths, self.spec, self.index = paths, spec, index
+        # an input that is an earlier segment's output is read where that
+        # segment leaves it; every other input is copied into a buffer of
+        # the segment's own at each call
+        self.ins, self.copy, self.chained = [], [], []
+        for i, t in enumerate(ins):
+            own = owner.owned.get(t.data_ptr())
+            if own is not None and own.shape == t.shape \
+                    and own.dtype == t.dtype:
+                x = own.detach()
+                self.chained.append(i)
+            else:
+                x = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                self.copy.append(i)
+            self.ins.append(x.requires_grad_(t.requires_grad))
+        self.copy_to = [self.ins[i] for i in self.copy]
+        _graph_copy(self.copy_to, [ins[i] for i in self.copy])
+        # the scene of the capture: every tensor a meta tensor, which no op
+        # can read, but the segment's reads, which _run puts in
+        self.scene = scene
+        for p, t in _scene_tensors(scene):
+            self.scene = with_tensor(self.scene, p,
+                                     t.new_empty(t.shape, device='meta'))
+        self.fn, self.static = fn, static
+        # the scene tensors that need a gradient are passed on: the next
+        # segment that reads one reads this segment's copy
+        self.threaded = tuple(p for p, i in zip(paths, index)
+                              if self.ins[i].requires_grad)
+        self.bwd, self.live, self.dead, self.fresh = None, None, None, True
+        self._capture(owner)
+        for o in self.outs:
+            owner.owned[o.data_ptr()] = o
+
+    def _run(self, ins):
+        '''The segment's ops on ins (its static inputs, or aliases of
+        them): its outputs, the state's and then the threaded scene
+        tensors', distinct, each input passed on as a copy.'''
+        xs = [ins[i] for i in self.index]
+        n = len(self.paths)
+        sc = self.scene
+        for p, x in zip(self.paths, xs[:n]):
+            sc = with_tensor(sc, p, x)
+        out = self.fn(sc, _unflatten(self.spec, iter(xs[n:])), *self.static)
+        leaves = []
+        self.out_spec = _flatten(out, leaves)
+        self.n_state = len(leaves)
+        outs, self.out_index = _unique(
+            leaves + [x for x in xs[:n] if x.requires_grad])
+        # an input passed on leaves as a copy made last, so that the
+        # gradient from the later segments reaches it first, as in the
+        # eager recompute
+        mine = {x.untyped_storage().data_ptr() for x in ins}
+        return [o.clone() if o.untyped_storage().data_ptr() in mine else o
+                for o in outs]
+
+    def _capture(self, owner):
+        '''Warm up (each kernel's first launch, outside the capture, on
+        aliases of the inputs: their own autograd nodes), then capture the
+        forward into owner's memory pool.'''
+        side = _side_stream(torch.cuda.current_device())
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.enable_grad():
+            alias = [x.detach().requires_grad_(x.requires_grad)
+                     for x in self.ins]
+            outs = self._run(alias)
+            diff = [o for o in outs if o.requires_grad]
+            wrt = [x for x in alias if x.requires_grad]
+            if diff and wrt:
+                torch.autograd.grad(diff, wrt,
+                                    [torch.zeros_like(o) for o in diff],
+                                    allow_unused=True)
+        torch.cuda.current_stream().wait_stream(side)
+        if owner.pool is None:
+            owner.pool = torch.cuda.graph_pool_handle()
+        self.pool, self.fwd = owner.pool, torch.cuda.CUDAGraph()
+        with _capturing(self.fwd, self.pool), torch.enable_grad():
+            self.outs = self._run(self.ins)
+
+    def _load(self, ins):
+        for i in self.chained:
+            if ins[i].data_ptr() != self.ins[i].data_ptr():
+                raise RuntimeError('fused_trace_diff: a captured shading '
+                                   'segment lost its input')
+        if self.fresh:  # loaded before the capture
+            self.fresh = False
+        else:
+            _graph_copy(self.copy_to, [ins[i] for i in self.copy])
+
+    def forward(self, ins):
+        self._load(ins)
+        self.fwd.replay()
+        return tuple(o.detach() for o in self.outs)
+
+    def _live(self, grads):
+        '''The outputs that get a gradient, the roots of autograd's own
+        backward of the segment, fixed at the first backward.'''
+        live = tuple(g is not None for g in grads)
+        if self.live is not None and self.live != live:
+            raise RuntimeError('fused_trace_diff: a captured shading segment '
+                               'got gradients for other outputs')
+        self.live = live
+        return [g for g in grads if g is not None]
+
+    def backward(self, grads):
+        got = self._live(grads)
+        gins = self._backward(got) if got else [None] * len(self.ins)
+        if self.dead is None:
+            self.dead = frozenset(i for i, (x, g) in enumerate(zip(self.ins,
+                                                                 gins))
+                                  if x.requires_grad and g is None)
+        return tuple(gins)
+
+    def _backward(self, got):
+        '''The inputs' gradients from the live outputs' (got): the
+        backward graph, captured at the first call.'''
+        if self.bwd is None:
+            with trace.span('grad.graph_capture', always=True):
+                self._capture_backward(got)
+        else:
+            _graph_copy(self.gouts, got)
+        self.bwd.replay()
+        return [None if g is None else g.detach() for g in self.gins]
+
+    def _capture_backward(self, got):
+        roots = [o for o, l in zip(self.outs, self.live) if l]
+        self.gouts = [torch.empty_like(o) for o in roots]
+        _graph_copy(self.gouts, got)
+        wrt = [i for i, x in enumerate(self.ins) if x.requires_grad]
+        self.bwd = torch.cuda.CUDAGraph()
+        with _capturing(self.bwd, self.pool):
+            gins = torch.autograd.grad(roots, [self.ins[i] for i in wrt],
+                                       self.gouts, allow_unused=True)
+        self.gins = [None] * len(self.ins)
+        for i, g in zip(wrt, gins):
+            self.gins[i] = g
+
+
+class _Shade(torch.autograd.Function):
+    '''apply(segment, *inputs) -> the segment's outputs: its graphs'
+    replays under autograd.'''
+
+    @staticmethod
+    def forward(ctx, seg, *ins):
+        ctx.seg = seg
+        ctx.set_materialize_grads(False)
+        outs = seg.forward(ins)
+        ctx.mark_non_differentiable(*(o for o, s in zip(outs, seg.outs)
+                                      if not s.requires_grad))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + ctx.seg.backward(grads)
+
+
+class _Graphed:
+    '''The shading runner of engine/path._bounce in the pair's recompute
+    on the card: each call is one captured segment, in call order, the
+    first recompute of a key capturing them.'''
+
+    def __init__(self, segment=_Segment):
+        self.segment, self.segments, self.owned, self.pool = segment, [], \
+            {}, None
+
+    def start(self):
+        self.k, self.thread = 0, {}
+        return self
+
+    def __call__(self, fn, scene, s, *static):
+        with trace.span('grad.shade'):
+            new = self.k == len(self.segments)
+            paths = tuple(p for p, _ in _scene_tensors(scene)
+                          if p[0] in fn.reads) if new \
+                else self.segments[self.k].paths
+            leaves = [self.thread[p] if p in self.thread else _at(scene, p)
+                      for p in paths]
+            spec = _flatten(s, leaves)
+            ins, index = _unique(leaves)
+            if new:
+                with trace.span('grad.graph_capture', always=True):
+                    self.segments.append(self.segment(
+                        self, fn, scene, paths, spec, index, ins, static))
+            seg = self.segments[self.k]
+            if spec != seg.spec or index != seg.index:
+                raise RuntimeError('fused_trace_diff: a shading segment '
+                                   'changed since its capture')
+            self.k += 1
+            if seg.dead:  # no gradient ever flows there: no edge either
+                ins = [t.detach() if i in seg.dead else t
+                       for i, t in enumerate(ins)]
+            with trace.span('grad.shade.replay'):
+                outs = _Shade.apply(seg, *ins)
+            out = [outs[i] for i in seg.out_index]
+            self.thread.update(zip(seg.threaded, out[seg.n_state:]))
+            return _unflatten(seg.out_spec, iter(out[:seg.n_state]))
+
+
+# captured recomputes by key, the newest _GRAPH_KEYS kept
+_GRAPH_KEYS = 4
+_GRAPHS = collections.OrderedDict()
+
+
+def _graphed(scene, ins, uniforms):
+    '''(key, its _Graphed) on the card, where the scene's shading can be
+    captured; None elsewhere.'''
+    if not ins[0].is_cuda or scene.world_textured or ins[0].numel() == 0:
+        return None
+    key = (uniforms.shape, uniforms.device,
+           tuple((t.shape, t.dtype, t.requires_grad) for t in ins[:6]),
+           _scene_layout(scene))
+    g = _GRAPHS.get(key)
+    if g is not None:
+        _GRAPHS.move_to_end(key)
+        return key, g
+    g = _GRAPHS[key] = _Graphed()
+    while len(_GRAPHS) > _GRAPH_KEYS:
+        _GRAPHS.popitem(last=False)
+    return key, g
+
+
 class FusedTraceDiff(torch.autograd.Function):
     '''The megakernel-forward / wavefront-backward pair (module docstring).
     apply(scene, paths, uniforms, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z,
@@ -470,7 +815,7 @@ class FusedTraceDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx, gy, gz):
-        from ptina_tpu_torch.engine.path import path_trace
+        from ptina_tpu_torch.engine.path import _eager, _path_trace
         uniforms, *ins = ctx.saved_tensors
         if _versions(ctx.scene) != ctx.versions:
             raise RuntimeError('fused_trace_diff: a scene tensor needed for '
@@ -478,18 +823,28 @@ class FusedTraceDiff(torch.autograd.Function):
                                'an inplace operation since the forward')
         need = ctx.needs_input_grad[3:]
         ins = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
-        with torch.enable_grad():
-            scene = ctx.scene
-            for path, t in zip(ctx.paths, ins[6:]):
-                scene = with_tensor(scene, path, t)
-            with trace.span('grad.recompute'):
-                rad = path_trace(scene, V3(*ins[:3]), V3(*ins[3:6]),
-                                 uniforms)
-            wrt = [t for t, n in zip(ins, need) if n]
-            with trace.span('grad.inner_backward'):
-                got = iter(torch.autograd.grad(
-                    (rad.x, rad.y, rad.z), wrt, (gx, gy, gz),
-                    allow_unused=True))
+        scene = ctx.scene
+        for path, t in zip(ctx.paths, ins[6:]):
+            scene = with_tensor(scene, path, t)
+        graphed = _graphed(scene, ins, uniforms)
+        try:
+            with torch.enable_grad():
+                with trace.span('grad.recompute'):
+                    rad = _path_trace(
+                        scene, V3(*ins[:3]), V3(*ins[3:6]), uniforms,
+                        shade=graphed[1].start() if graphed else _eager)
+                wrt = [t for t, n in zip(ins, need) if n]
+                with trace.span('grad.inner_backward'):
+                    got = torch.autograd.grad(
+                        (rad.x, rad.y, rad.z), wrt, (gx, gy, gz),
+                        allow_unused=True)
+        except BaseException:
+            if graphed:  # a capture may have stopped half way
+                _GRAPHS.pop(graphed[0], None)
+            raise
+        if graphed:  # a gradient may be a graph's own output buffer
+            got = [None if g is None else g.clone() for g in got]
+        got = iter(got)
         return (None, None, None) + tuple(next(got) if n else None
                                           for n in need)
 

@@ -43,7 +43,8 @@ from ptina_tpu_torch.utils.vec import (V3, vdot, vdot_or_zero, vnormalize,
 from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.intersect.dispatch import cast_shadow, cast_shaded
 from ptina_tpu_torch.lights import lights_hit, lights_sample, world_at
-from ptina_tpu_torch.mtllib import fetch_material
+from ptina_tpu_torch.mtllib import fetch_material, material_rows
+from ptina_tpu_torch.materials.disney import disney_derive
 from ptina_tpu_torch.materials.simple import bsdf_eval, bsdf_sample
 from ptina_tpu_torch.sampling.sobol import (sample_dims, pixel_rotation,
                                            sobol_block)
@@ -81,63 +82,131 @@ def _any3(v):
     return (v.x > 0.0) | (v.y > 0.0) | (v.z > 0.0)
 
 
-def _bounce(scene, carry, u, model='disney', lanes=None):
-    '''One wavefront bounce.  carry: (ro, rd, throughput, result,
-    last_brdf_pdf, avoid, alive); u: this bounce's [6, N] uniforms;
-    lanes: path_trace's.'''
-    ro, rd, throughput, result, last_brdf_pdf, avoid, alive = carry
-    rd = vnormalize(rd)
-    hit, hitpos, normal, sign, material = _cast_and_shade(scene, ro, rd,
-                                                          avoid)
+def _shade_hit(scene, s):
+    '''A bounce's shading from its closest hit to its shadow ray (segment
+    A): the derived material, the hit point and two-sided normal, the
+    direct light hit with MIS, the environment on a miss and the light
+    sample with its shadow ray.  s: the carry's ro, rd (normalised),
+    throughput, result, last_brdf_pdf and alive; the closest cast's hit
+    and t, its normal; material_rows' params; u, the light sample's 3
+    uniform rows.  Of the scene it reads the tensors under _shade_hit.reads
+    alone.  Returns what cast_shadow and _shade_bsdf read, rd, throughput
+    and last_brdf_pdf passed on unchanged.'''
+    rd, hit, u = s['rd'], s['hit'], s['u']
+    material = disney_derive(s['params'])
+    hitpos = s['ro'] + rd * s['t']
+    sign = -vdot(rd, s['normal'])
+    normal = vwhere(sign < 0, -s['normal'], s['normal'])
 
     # direct light hit with MIS
-    lit = lights_hit(scene.lights, ro, rd)
-    lit_vis = lit['hit'] & (~hit.hit | (lit['dis'] < hit.t))
-    mis = power_heuristic(last_brdf_pdf, lit['pdf'])
-    result = result + vwhere(alive & lit_vis,
-                             throughput * lit['color'] * mis, 0.0)
+    lit = lights_hit(scene.lights, s['ro'], rd)
+    lit_vis = lit['hit'] & (~hit | (lit['dis'] < s['t']))
+    mis = power_heuristic(s['last_brdf_pdf'], lit['pdf'])
+    result = s['result'] + vwhere(s['alive'] & lit_vis,
+                                  s['throughput'] * lit['color'] * mis, 0.0)
 
     # environment on a miss, then the lane dies
-    miss = ~hit.hit
-    result = result + vwhere(alive & miss, throughput * world_at(scene, rd),
-                             0.0)
-    live = alive & ~miss
+    miss = ~hit
+    result = result + vwhere(s['alive'] & miss,
+                             s['throughput'] * world_at(scene, rd), 0.0)
+    live = s['alive'] & ~miss
 
     # next-event estimation.  Lanes without a surface hit get a PARKED
     # shadow ray (origin 0, +z, tmax 0): their NEE is masked out anyway,
     # and the parked ray never occludes.
     li = lights_sample(scene.lights, hitpos, u[0], u[1], u[2])
-    ro_sh = vwhere(hit.hit, hitpos, 0.0)
-    rd_sh = vwhere(hit.hit, li['dir'], V3.full_like(hitpos, (0, 0, 1)))
-    tmax_sh = torch.where(hit.hit, li['dis'], 0.0)
-    with torch.no_grad():
-        occ = cast_shadow(scene, ro_sh, rd_sh, hit.index, tmax_sh)
+    ro_sh = vwhere(hit, hitpos, 0.0)
+    rd_sh = vwhere(hit, li['dir'], V3.full_like(hitpos, (0, 0, 1)))
+    tmax_sh = torch.where(hit, li['dis'], 0.0)
+    return dict(material=material, hitpos=hitpos, normal=normal, sign=sign,
+                result=result, live=live, li=li, ro_sh=ro_sh, rd_sh=rd_sh,
+                tmax_sh=tmax_sh, rd=rd, throughput=s['throughput'],
+                last_brdf_pdf=s['last_brdf_pdf'])
+
+
+_shade_hit.reads = ('lights', 'world_fac')
+
+
+def _shade_bsdf(scene, s, model, last):
+    '''A bounce's shading after its shadow cast (segment B): the BSDF's
+    evaluation for next-event estimation, its sample and the carry's
+    update.  s: _shade_hit's material, hitpos, normal, sign, result, live,
+    li, rd, throughput and last_brdf_pdf; the shadow cast's occ; the
+    closest hit's index; the carry's avoid; u, the BSDF sample's 3
+    uniform rows.  Reads no scene tensor.  Returns the next carry as a
+    dict, its rd normalised for the next bounce's cast unless `last`.'''
+    material, normal, sign, rd = s['material'], s['normal'], s['sign'], \
+        s['rd']
+    li, live, throughput, u = s['li'], s['live'], s['throughput'], s['u']
+    zero = scene.materials.zero
     brdf_clr = bsdf_eval(model, material, normal, sign, -rd, li['dir'],
-                         zero=scene.materials.zero)
+                         zero=zero)
     brdf_pdf = vavg3(brdf_clr)
     mis2 = power_heuristic(li['pdf'], brdf_pdf)
     nee = li['color'] * brdf_clr * (mis2 * vdot_or_zero(normal, li['dir']))
-    nee_ok = live & ~occ & _any3(li['color'])
-    if lanes is not None:
-        lanes.append(dict(alive=alive, ro=ro, rd=rd, avoid=avoid, hit=hit,
-                          shadow=live & _any3(li['color']), ro_sh=ro_sh,
-                          rd_sh=rd_sh, tmax=tmax_sh, occ=occ))
-    result = result + vwhere(nee_ok, throughput * nee, 0.0)
+    nee_ok = live & ~s['occ'] & _any3(li['color'])
+    result = s['result'] + vwhere(nee_ok, throughput * nee, 0.0)
 
     # BSDF bounce.  Dead lanes are PARKED on the degenerate ray at the
     # origin pointing +z (their radiance is final).
     outdir, pdf, color = bsdf_sample(model, material, normal, sign, -rd,
-                                     u[3], u[4], u[5],
-                                     zero=scene.materials.zero)
+                                     u[0], u[1], u[2], zero=zero)
     throughput = vwhere(live, throughput * color, throughput)
-    park = V3.full_like(hitpos, (0.0, 0.0, 1.0))
-    ro = vwhere(live, hitpos, 0.0)
+    park = V3.full_like(s['hitpos'], (0.0, 0.0, 1.0))
+    ro = vwhere(live, s['hitpos'], 0.0)
     rd = vwhere(live, outdir, park)
-    avoid = torch.where(live, hit.index, avoid)
-    last_brdf_pdf = torch.where(live, pdf, last_brdf_pdf)
+    avoid = torch.where(live, s['index'], s['avoid'])
+    last_brdf_pdf = torch.where(live, pdf, s['last_brdf_pdf'])
     alive = live & _any3(throughput) \
         & ((rd.x != 0.0) | (rd.y != 0.0) | (rd.z != 0.0))
-    return (ro, rd, throughput, result, last_brdf_pdf, avoid, alive)
+    if not last:
+        rd = vnormalize(rd)
+    return dict(ro=ro, rd=rd, throughput=throughput, result=result,
+                last_brdf_pdf=last_brdf_pdf, avoid=avoid, alive=alive)
+
+
+_shade_bsdf.reads = ()
+
+
+def _eager(fn, scene, s, *static):
+    '''The wavefront's runner of a shading segment: the call itself.'''
+    return fn(scene, s, *static)
+
+
+def _bounce(scene, carry, u, model='disney', lanes=None, last=True,
+            shade=_eager):
+    '''One wavefront bounce: the closest cast, the material rows, segment
+    A (_shade_hit), the shadow cast, segment B (_shade_bsdf).  carry:
+    (ro, rd (normalised), throughput, result, last_brdf_pdf, avoid,
+    alive); u: this bounce's [6, N] uniforms; lanes: path_trace's.
+    Returns the next carry, its rd normalised unless `last`.  shade(fn,
+    scene, s, *static) runs each segment: the call itself here, a CUDA
+    graph's replay in the pair's recompute (engine/fused.py), the same
+    ops on the same inputs.'''
+    ro, rd, throughput, result, last_brdf_pdf, avoid, alive = carry
+    with torch.no_grad():
+        hit, normal, tex_s, tex_t, mtlid = cast_shaded(scene, ro, rd, avoid)
+    params = material_rows(scene, mtlid, tex_s, tex_t)
+    s = shade(_shade_hit, scene, dict(
+        ro=ro, rd=rd, throughput=throughput, result=result,
+        last_brdf_pdf=last_brdf_pdf, alive=alive, hit=hit.hit, t=hit.t,
+        normal=normal, params=params, u=u[0:3]))
+    with torch.no_grad():
+        occ = cast_shadow(scene, s['ro_sh'], s['rd_sh'], hit.index,
+                          s['tmax_sh'])
+    if lanes is not None:
+        lanes.append(dict(alive=alive, ro=ro, rd=rd, avoid=avoid, hit=hit,
+                          shadow=s['live'] & _any3(s['li']['color']),
+                          ro_sh=s['ro_sh'], rd_sh=s['rd_sh'],
+                          tmax=s['tmax_sh'], occ=occ))
+    c = shade(_shade_bsdf, scene, dict(
+        material=s['material'], hitpos=s['hitpos'], normal=s['normal'],
+        sign=s['sign'], result=s['result'], live=s['live'], li=s['li'],
+        rd=s['rd'], throughput=s['throughput'],
+        last_brdf_pdf=s['last_brdf_pdf'], occ=occ, index=hit.index,
+        avoid=avoid, u=u[3:6]), model, last)
+    return (c['ro'], c['rd'], c['throughput'], c['result'],
+            c['last_brdf_pdf'], c['avoid'], c['alive'])
 
 
 def path_trace(scene, ro, rd, uniforms, model='disney', lanes=None):
@@ -154,10 +223,17 @@ def path_trace(scene, ro, rd, uniforms, model='disney', lanes=None):
     last_brdf_pdf starts at INF, not 0 as in ptina: before the first
     bounce there is no competing light-sampling strategy, so a directly
     visible emitter is collected at full weight.'''
+    return _path_trace(scene, ro, rd, uniforms, model, lanes)
+
+
+def _path_trace(scene, ro, rd, uniforms, model='disney', lanes=None,
+                shade=_eager):
+    '''path_trace with each bounce's shading segments run by `shade`
+    (_bounce).'''
     depth = (uniforms.shape[0] - 2) // 6
     zero = torch.zeros_like(ro.x)
     one = torch.ones_like(ro.x)
-    carry = (ro, rd, V3(one, one, one), V3(zero, zero, zero),
+    carry = (ro, vnormalize(rd), V3(one, one, one), V3(zero, zero, zero),
              torch.full_like(ro.x, INF),
              torch.full(ro.x.shape, -1, dtype=torch.int32,
                         device=ro.x.device),
@@ -165,7 +241,7 @@ def path_trace(scene, ro, rd, uniforms, model='disney', lanes=None):
     for b in range(depth):
         with trace.span('wavefront.bounce'):
             carry = _bounce(scene, carry, uniforms[2 + 6 * b:8 + 6 * b],
-                            model, lanes)
+                            model, lanes, b == depth - 1, shade)
     return carry[3]
 
 

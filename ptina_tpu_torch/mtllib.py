@@ -38,8 +38,9 @@ from ptina_tpu_torch.utils.vec import V3
 from ptina_tpu_torch.texture import sample_texture
 from ptina_tpu_torch.materials.disney import disney_derive
 
-__all__ = ['fetch_material', 'MaterialRows', 'material_rows_backward',
-           'material_rows_backward_plain', 'build_library', 'LAUNCHES']
+__all__ = ['fetch_material', 'material_rows', 'MaterialRows',
+           'material_rows_backward', 'material_rows_backward_plain',
+           'build_library', 'LAUNCHES']
 
 LAUNCHES = {'material_rows': 0}
 
@@ -122,9 +123,15 @@ class MaterialRows(torch.autograd.Function):
         return material_rows_backward(row, g_base, g_scal, ctx.m1), None
 
 
-def fetch_material(scene, mtlid, tex_s, tex_t):
-    '''mtlid [N] int32, tex_s / tex_t [N] -> derived Disney parameter dict
-    (basecolor V3, scalars [N]).'''
+def material_rows(scene, mtlid, tex_s, tex_t):
+    '''mtlid [N] int32, tex_s / tex_t [N] -> the raw Disney parameter
+    dict (basecolor V3, the 11 scalars [N]): the lane's factor row
+    (MaterialRows), each parameter times its bilinear texture sample
+    where the lane's material binds one, on a scene with a texture atlas
+    (texture.TexelRows' gathers).
+    The part of the fetch that holds hand-written backwards; the pair's
+    recompute runs it eagerly between its captured shading segments
+    (engine/fused.py).'''
     mats = scene.materials
     m1 = mats.fac.shape[0]  # M + 1 (last row = defaults for mtlid -1)
     # an id without a material row takes the defaults too, as the
@@ -152,4 +159,10 @@ def fetch_material(scene, mtlid, tex_s, tex_t):
     params = {'basecolor': base}
     for p_i, name in enumerate(MATERIAL_PARAMS[1:], start=1):
         params[name] = scal[p_i - 1]
-    return disney_derive(params)
+    return params
+
+
+def fetch_material(scene, mtlid, tex_s, tex_t):
+    '''mtlid [N] int32, tex_s / tex_t [N] -> derived Disney parameter dict
+    (basecolor V3, scalars [N]): material_rows, then disney_derive.'''
+    return disney_derive(material_rows(scene, mtlid, tex_s, tex_t))

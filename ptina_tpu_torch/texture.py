@@ -137,16 +137,21 @@ def texel_rows_backward(texid, x, y, g, shape):
 class TexelRows(torch.autograd.Function):
     '''apply(data [T, H, W, 4], texid, x, y [N] int64) -> data[texid, x,
     y] [N, 4], by the same indexing; the backward is
-    texel_rows_backward.'''
+    texel_rows_backward, and nothing where autograd reaches the gather
+    with no gradient (the pair's captured recompute can: its segments
+    take every parameter of the fetch).'''
 
     @staticmethod
     def forward(ctx, data, texid, x, y):
         ctx.save_for_backward(texid, x, y)
         ctx.shape = data.shape
+        ctx.set_materialize_grads(False)
         return data[texid, x, y]
 
     @staticmethod
     def backward(ctx, g):
+        if g is None:  # reached, but no gradient flows here
+            return None, None, None, None
         texid, x, y = ctx.saved_tensors
         return texel_rows_backward(texid, x, y, g, ctx.shape), None, None, \
             None

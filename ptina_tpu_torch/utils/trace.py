@@ -25,8 +25,9 @@ Reference: ptina_tpu/utils/trace.py (log, timed, profile_trace).
 
 Turning tracing on.  Tracing is off by default: a span site costs one
 flag test and records nothing, except the set-up spans (`scene.*`,
-`kernels.build`) and `timed` blocks, which run once per scene build,
-library load or explicit measurement and always record their host time.
+`kernels.build`, `grad.graph_capture`) and `timed` blocks, which run once
+per scene build, library load, graph capture or explicit measurement
+and always record their host time.
 Tracing is on between `enable()` and `disable()`, and while any
 torch.profiler session records (profile_trace, or the profiler of a
 benchmark's traced run): no knob or environment variable.  While it is
@@ -84,6 +85,14 @@ The spans of the port, by site:
                                     torch.autograd.grad of _loss_and_grad
     grad.recompute,                 engine/fused.FusedTraceDiff.backward:
       grad.inner_backward             its path_trace; its autograd.grad
+    grad.shade                      engine/fused._Graphed: a shading
+                                    segment of the recompute on the card
+                                    (two a bounce, inside grad.recompute)
+    grad.shade.replay               the segment's graph replayed (inside
+                                    grad.shade)
+    grad.graph_capture              a segment's forward graph (inside
+                                    grad.shade) or backward graph (inside
+                                    grad.inner_backward) captured (always)
     grad.material_rows              mtllib.material_rows_backward: the
                                     material fetch's backward kernel, one
                                     a bounce (inside grad.inner_backward)

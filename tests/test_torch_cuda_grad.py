@@ -27,7 +27,16 @@ At 64x64, 1 spp:
     texel of the 64x64 ramp, and a blocked-route cornell_highpoly's
     white-wall basecolor red;
   * inverse_render_step's first step is fac - lr * g bit for bit, and
-    four steps toward the wall at half its basecolor lower the loss.
+    four steps toward the wall at half its basecolor lower the loss;
+  * the pair's recompute with its shading replayed as CUDA graphs
+    against autograd through the eager path_trace, bit for bit: the
+    material factors (cornell_monkey) and the atlas (matball with the
+    ramp) at 64x64 and 512x512, the light color and the world factor at
+    64x64, on the capturing call and on a replay, every shading segment
+    replayed and the launches of the hand-written kernels the twin's;
+  * five inverse steps capture once, a new lane count once more;
+  * a scene tensor changed in place raises before any replay;
+  * a textured environment's scene recomputes eagerly, bit for bit.
 '''
 
 import numpy as np
@@ -44,6 +53,7 @@ from ptina_tpu_torch.sampling.sobol import sample_dims
 from ptina_tpu_torch.scene import with_tensor
 from ptina_tpu_torch.scenes import (cornell_box, cornell_highpoly,
                                     cornell_monkey, envlight_scene, matball)
+from ptina_tpu_torch.utils import trace
 from ptina_tpu_torch.utils.vec import V3
 
 from torch_assets import grew, launches
@@ -217,3 +227,157 @@ def test_inverse_render_steps_lower_the_loss(dev):
         losses.append(loss.item())
         sc = nxt
     assert losses[-1] < losses[0], losses
+
+
+# The pair's recompute as CUDA graphs (engine/fused.py): its shading
+# segments replay captured graphs between the eager casts and material
+# rows.  The twin is autograd through the eager path_trace on the same
+# rays, uniforms and cotangent.
+
+def _rays(scene, res, sample=0):
+    ii, jj = pixel_grid(res, res, device=scene.device)
+    u = sample_dims(sample, ii, jj, PATH_DIMS)
+    ro, rd = camera_rays(scene.cam_v2w, (ii.float() + u[0]) / res * 2 - 1,
+                         (jj.float() + u[1]) / res * 2 - 1)
+    return ro, rd, u
+
+
+def _pair_and_twin(scene, paths, res, sample=0):
+    '''The gradients of a random cotangent of the radiance in the tensors
+    at `paths`, through fused_trace_diff and through the eager path_trace,
+    and each one's launches.'''
+    ro, rd, u = _rays(scene, res, sample)
+    gen = torch.Generator(device=scene.device).manual_seed(sample)
+    gout = tuple(torch.rand(res * res, generator=gen, device=scene.device)
+                 for _ in range(3))
+    out = []
+    for trace_fn in (fused_trace_diff, tpath.path_trace):
+        leaves, sc = [], scene
+        for p in paths:
+            leaves.append(_get(scene, p).detach().clone().requires_grad_())
+            sc = with_tensor(sc, p, leaves[-1])
+        before = launches()
+        rad = trace_fn(sc, ro, rd, u)
+        got = torch.autograd.grad((rad.x, rad.y, rad.z), leaves, gout)
+        torch.cuda.synchronize()
+        out.append((got, grew(before)))
+    return out
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+GRAPH_CASES = {
+    'monkey_fac_64': (lambda d: cornell_monkey(device=d),
+                      [('materials', 'fac')], 64),
+    'monkey_fac_512': (lambda d: cornell_monkey(device=d),
+                       [('materials', 'fac')], 512),
+    'matball_atlas_64': (
+        lambda d: matball(roughness_tex=bench_texture(), device=d),
+        [('textures', 'data')], 64),
+    'matball_atlas_512': (
+        lambda d: matball(roughness_tex=bench_texture(), device=d),
+        [('textures', 'data')], 512),
+    'cornell_light_color_64': (lambda d: cornell_box(device=d),
+                               [('lights', 'color'), ('materials', 'fac')],
+                               64),
+    'matball_world_factor_64': (
+        lambda d: matball(roughness_tex=bench_texture(), device=d),
+        [('world_fac',), ('lights', 'color'), ('textures', 'data')], 64)}
+
+
+@pytest.mark.parametrize('name', sorted(GRAPH_CASES))
+def test_graphed_backward_equals_the_eager_twin(dev, name):
+    '''Bit for bit, on the capturing call and on a replay (the second
+    call, another sample), with every shading segment replayed and the
+    hand-written kernels' launches those of the twin's autograd plus the
+    pair's one path launch.'''
+    make, paths, res = GRAPH_CASES[name]
+    scene = make(dev)
+    trace.enable()
+    try:
+        for sample in (0, 1):
+            trace.reset()
+            (got, pair), (want, twin) = _pair_and_twin(scene, paths, res,
+                                                       sample)
+            spans = trace.summary()['traced']
+            assert spans['grad.shade']['count'] == 2 * DEPTH
+            assert spans['grad.shade.replay']['count'] == 2 * DEPTH
+            for p, g, w in zip(paths, got, want):
+                assert torch.equal(_bits(g), _bits(w)), (p, sample)
+                assert g.abs().max() > 0, p
+            assert pair == dict(twin, path=1)
+            assert twin['shade'] == DEPTH and twin['any'] == DEPTH
+    finally:
+        trace.disable()
+
+
+def _captures():
+    return trace.summary()['always'].get('grad.graph_capture',
+                                         {'count': 0})['count']
+
+
+def test_graphs_capture_once_a_lane_count(dev):
+    '''Five inverse steps capture in the first step only; a new lane count
+    captures again, and its first step's new factors equal the eager
+    twin's.'''
+    fused._GRAPHS.clear()
+    trace.reset()
+    scene = cornell_monkey(device=dev)
+    target = _target(dev)
+    counts = []
+    sc = scene
+    for _ in range(5):
+        sc, _ = diff.inverse_render_step(sc, target, lr=0.1)
+        counts.append(_captures())
+    assert counts[0] > 0 and counts == [counts[0]] * 5
+    assert len(fused._GRAPHS) == 1
+    small = target[:32, :32].contiguous()
+    nxt, _ = diff.inverse_render_step(scene, small, lr=0.1)
+    assert _captures() > counts[0] and len(fused._GRAPHS) == 2
+    _, g = diff._loss_and_grad(scene, small, ('materials', 'fac'),
+                               trace_diff=False)
+    assert torch.equal(nxt.materials.fac, scene.materials.fac - 0.1 * g)
+
+
+def test_graphed_backward_refuses_a_scene_changed_in_place(dev):
+    '''The in-place check runs on the host before any replay.'''
+    scene = cornell_monkey(device=dev)
+    ro, rd, u = _rays(scene, RES)
+    fac = scene.materials.fac.detach().clone().requires_grad_(True)
+    sc = with_tensor(scene, ('materials', 'fac'), fac)
+    # a captured key first, so that a replay would be ready to run
+    rad = fused_trace_diff(sc, ro, rd, u)
+    torch.autograd.grad(rad.x.sum(), fac)
+    rad = fused_trace_diff(sc, ro, rd, u)
+    with torch.no_grad():
+        sc.lights.color.mul_(2.0)
+    trace.enable()
+    trace.reset()
+    try:
+        with pytest.raises(RuntimeError, match='modified by an inplace'):
+            torch.autograd.grad(rad.x.sum(), fac)
+        assert 'grad.shade' not in trace.summary()['traced']
+    finally:
+        trace.disable()
+
+
+def test_textured_world_recomputes_eagerly(dev):
+    '''A textured environment's world_at holds a texel gather: that
+    scene's recompute takes no graph, and its gradients are the eager
+    twin's.'''
+    scene = envlight_scene(device=dev)
+    assert scene.world_textured
+    trace.enable()
+    trace.reset()
+    try:
+        (got, pair), (want, twin) = _pair_and_twin(
+            scene, [('world_fac',), ('textures', 'data')], RES)
+        spans = trace.summary()['traced']
+    finally:
+        trace.disable()
+    assert spans['grad.recompute']['count'] == 1 and 'grad.shade' not in spans
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w)) and g.abs().max() > 0
+    assert pair == dict(twin, path=1)
