@@ -29,8 +29,10 @@ and pulls the cotangent back to the rays and to every floating scene
 tensor that requires grad; the uniforms get none.  The kernel has no
 backward of its own: the gradients are the wavefront's, whose casts are
 detached (engine/path.py).  On the card the recompute replays its
-shading as CUDA graphs between the eager casts and material rows (the
-section above FusedTraceDiff); on the CPU it is path_trace itself.
+shading as CUDA graphs between the eager casts, material rows and world
+fetch (the section above FusedTraceDiff), for every scene the kernel
+takes, a textured environment included; on the CPU it is path_trace
+itself.
 
 Each picks by the scene tensors' device and nothing else: CPU -> the
 plain twin; CUDA -> the kernel, or an exception (an ineligible scene, a
@@ -454,21 +456,23 @@ def _versions(scene):
 
 
 # The recompute's shading as CUDA graphs.  A bounce of path_trace is its
-# closest cast, its material rows, shading segment A, its shadow cast and
-# shading segment B (engine/path._bounce).  The casts and the rows hold
-# the hand-written kernels and their backwards; the segments are plain
-# torch on fixed shapes, a few hundred small ops each, and on the card
-# the pair's backward runs each segment as a CUDA graph pair: a forward
-# graph captured at the segment's first call, a backward graph at its
-# first backward, both replayed under autograd (_Shade) from then on.
-# The casts and the rows stay eager, each kernel with its wrapper, its
-# spans, its counters and its launch count.
+# closest cast, its material rows, its world fetch, shading segment A,
+# its shadow cast and shading segment B (engine/path._bounce).  The
+# casts, the rows and the world fetch hold the hand-written kernels and
+# their backwards (the rows' and a textured world's texel gathers); the
+# segments are plain torch on fixed shapes, a few hundred small ops
+# each, and on the card the pair's backward runs each segment as a CUDA
+# graph pair: a forward graph captured at the segment's first call, a
+# backward graph at its first backward, both replayed under autograd
+# (_Shade) from then on.  The casts, the rows and the world fetch stay
+# eager, each kernel with its wrapper, its spans, its counters and its
+# launch count.
 #
 # A segment reads static input buffers: its own, which each call copies
 # its inputs into, or, for an input that an earlier segment made, that
 # segment's output where it lies.  The scene tensors a segment reads
-# (fn.reads: the lights and the world factor) are inputs too, so every
-# step's new scene replays.  The gradients are autograd's bits: a graph
+# (fn.reads: the lights) are inputs too, so every step's new scene
+# replays.  The gradients are autograd's bits: a graph
 # replays the kernels of the eager recompute on the same values, and the
 # sums autograd makes across segments keep their eager order because an
 # input a later segment reads again is passed on as a copy made at the
@@ -480,11 +484,11 @@ def _versions(scene):
 #
 # Captures are keyed on what the capture depends on (_graphed: the lanes,
 # the depth, the rays' and every scene tensor's shape, dtype and
-# requires_grad, the scene's other fields), a key's graphs sharing one
-# memory pool, replayed in the order they were captured.  A scene with a
-# textured environment recomputes eagerly: its world_at holds a texel
-# gather.  Spans: each segment call is one `grad.shade`, a replay one
-# `grad.shade.replay` inside it, a capture one `grad.graph_capture`.
+# requires_grad, the scene's other fields, a textured environment's
+# texture id among them), a key's graphs sharing one memory pool,
+# replayed in the order they were captured.  Spans: each segment call is
+# one `grad.shade`, a replay one `grad.shade.replay` inside it, a capture
+# one `grad.graph_capture`.
 
 def _scene_layout(scene, path=()):
     '''What the recompute's graphs depend on of a scene: (path, shape,
@@ -779,7 +783,7 @@ _GRAPHS = collections.OrderedDict()
 def _graphed(scene, ins, uniforms):
     '''(key, its _Graphed) on the card, where the scene's shading can be
     captured; None elsewhere.'''
-    if not ins[0].is_cuda or scene.world_textured or ins[0].numel() == 0:
+    if not ins[0].is_cuda or ins[0].numel() == 0:
         return None
     key = (uniforms.shape, uniforms.device,
            tuple((t.shape, t.dtype, t.requires_grad) for t in ins[:6]),

@@ -42,7 +42,8 @@ from ptina_tpu_torch.utils.vec import (V3, vdot, vdot_or_zero, vnormalize,
                                        vwhere, vavg3)
 from ptina_tpu_torch.camera import camera_rays
 from ptina_tpu_torch.intersect.dispatch import cast_shadow, cast_shaded
-from ptina_tpu_torch.lights import lights_hit, lights_sample, world_at
+from ptina_tpu_torch.lights import (lights_hit, lights_sample, world_at,
+                                    world_counts)
 from ptina_tpu_torch.mtllib import fetch_material, material_rows
 from ptina_tpu_torch.materials.disney import disney_derive
 from ptina_tpu_torch.materials.simple import bsdf_eval, bsdf_sample
@@ -88,10 +89,12 @@ def _shade_hit(scene, s):
     direct light hit with MIS, the environment on a miss and the light
     sample with its shadow ray.  s: the carry's ro, rd (normalised),
     throughput, result, last_brdf_pdf and alive; the closest cast's hit
-    and t, its normal; material_rows' params; u, the light sample's 3
-    uniform rows.  Of the scene it reads the tensors under _shade_hit.reads
-    alone.  Returns what cast_shadow and _shade_bsdf read, rd, throughput
-    and last_brdf_pdf passed on unchanged.'''
+    and t, its normal; material_rows' params; world, the environment's
+    radiance along rd (world_at, fetched before the segment); u, the
+    light sample's 3 uniform rows.  Of the scene it reads the tensors
+    under _shade_hit.reads alone.  Returns what cast_shadow and
+    _shade_bsdf read, rd, throughput and last_brdf_pdf passed on
+    unchanged.'''
     rd, hit, u = s['rd'], s['hit'], s['u']
     material = disney_derive(s['params'])
     hitpos = s['ro'] + rd * s['t']
@@ -108,7 +111,7 @@ def _shade_hit(scene, s):
     # environment on a miss, then the lane dies
     miss = ~hit
     result = result + vwhere(s['alive'] & miss,
-                             s['throughput'] * world_at(scene, rd), 0.0)
+                             s['throughput'] * s['world'], 0.0)
     live = s['alive'] & ~miss
 
     # next-event estimation.  Lanes without a surface hit get a PARKED
@@ -124,7 +127,7 @@ def _shade_hit(scene, s):
                 last_brdf_pdf=s['last_brdf_pdf'])
 
 
-_shade_hit.reads = ('lights', 'world_fac')
+_shade_hit.reads = ('lights',)
 
 
 def _shade_bsdf(scene, s, model, last):
@@ -173,24 +176,40 @@ def _eager(fn, scene, s, *static):
     return fn(scene, s, *static)
 
 
+def _world_fetch(scene, rd, alive, hit):
+    '''The environment's radiance along every lane's rd (world_at), in a
+    `world.fetch` span; while tracing is on, after the span, its `world`
+    counter (lights.world_counts) over the lanes it enters the result
+    for, those alive that miss.'''
+    with trace.span('world.fetch'):
+        world = world_at(scene, rd)
+    if trace.tracing():
+        trace.add_counts('world', world_counts(scene, rd, alive & ~hit))
+    return world
+
+
 def _bounce(scene, carry, u, model='disney', lanes=None, last=True,
             shade=_eager):
-    '''One wavefront bounce: the closest cast, the material rows, segment
-    A (_shade_hit), the shadow cast, segment B (_shade_bsdf).  carry:
-    (ro, rd (normalised), throughput, result, last_brdf_pdf, avoid,
-    alive); u: this bounce's [6, N] uniforms; lanes: path_trace's.
-    Returns the next carry, its rd normalised unless `last`.  shade(fn,
-    scene, s, *static) runs each segment: the call itself here, a CUDA
-    graph's replay in the pair's recompute (engine/fused.py), the same
-    ops on the same inputs.'''
+    '''One wavefront bounce: the closest cast, the material rows, the
+    world fetch (_world_fetch), segment A (_shade_hit), the shadow cast,
+    segment B (_shade_bsdf).  carry: (ro, rd (normalised), throughput,
+    result, last_brdf_pdf, avoid, alive); u: this bounce's [6, N]
+    uniforms; lanes: path_trace's.  Returns the next carry, its rd
+    normalised unless `last`.  shade(fn, scene, s, *static) runs each
+    segment: the call itself here, a CUDA graph's replay in the pair's
+    recompute (engine/fused.py), the same ops on the same inputs.  The
+    casts, the rows and the world fetch, which hold the hand-written
+    kernels and their backwards (a textured world's fetch is four texel
+    gathers), run eagerly on every route.'''
     ro, rd, throughput, result, last_brdf_pdf, avoid, alive = carry
     with torch.no_grad():
         hit, normal, tex_s, tex_t, mtlid = cast_shaded(scene, ro, rd, avoid)
     params = material_rows(scene, mtlid, tex_s, tex_t)
+    world = _world_fetch(scene, rd, alive, hit.hit)
     s = shade(_shade_hit, scene, dict(
         ro=ro, rd=rd, throughput=throughput, result=result,
         last_brdf_pdf=last_brdf_pdf, alive=alive, hit=hit.hit, t=hit.t,
-        normal=normal, params=params, u=u[0:3]))
+        normal=normal, params=params, world=world, u=u[0:3]))
     with torch.no_grad():
         occ = cast_shadow(scene, s['ro_sh'], s['rd_sh'], hit.index,
                           s['tmax_sh'])

@@ -16,10 +16,10 @@ from ptina_tpu_torch.utils.mathutils import EPS, INF, clamp_min, safe_sqrt
 from ptina_tpu_torch.utils.vec import (V3, vdot, vnormalize, vcross, vwhere,
                                        vspherical, vdir2tex)
 from ptina_tpu_torch.scene import LIGHT_POINT, LIGHT_AREA
-from ptina_tpu_torch.texture import sample_texture
+from ptina_tpu_torch.texture import sample_texture, texel_keys
 
-__all__ = ['lights_hit', 'lights_sample', 'world_at', 'ray_sphere',
-           'ray_rect']
+__all__ = ['lights_hit', 'lights_sample', 'world_at', 'world_counts',
+           'ray_sphere', 'ray_rect']
 
 
 def _slot_v3(table, l):
@@ -163,21 +163,54 @@ def lights_sample(lights, hitpos, su, sv, sz):
     )
 
 
+def _no_atlas(scene):
+    return (scene.textures.data.shape[1] == 1
+            and scene.textures.data.shape[2] == 1)
+
+
+def _world_uv(scene, rd):
+    '''The environment's texture row [N] and equirect (s, t) of rd.'''
+    texid = torch.clamp_min(scene.world_tex, 0)
+    s, t = vdir2tex(V3(rd.x, rd.z, -rd.y))
+    return texid.expand(rd.x.shape), s, t
+
+
 def world_at(scene, rd):
     '''Environment radiance for directions rd (reference WorldLight.at,
     with the blender axis swizzle for the equirect lookup).  Returns V3.'''
     fac = scene.world_fac
-    no_atlas = (scene.textures.data.shape[1] == 1
-                and scene.textures.data.shape[2] == 1)
-    if no_atlas or not scene.world_textured:
+    if _no_atlas(scene) or not scene.world_textured:
         one = torch.ones_like(rd.x)
         return V3(fac[0] * one, fac[1] * one, fac[2] * one)
     textured = scene.world_tex >= 0
-    texid = torch.clamp_min(scene.world_tex, 0)
-    d = V3(rd.x, rd.z, -rd.y)
-    s, t = vdir2tex(d)
-    tex = sample_texture(scene.textures, texid.expand(rd.x.shape), s, t)
+    texid, s, t = _world_uv(scene, rd)
+    tex = sample_texture(scene.textures, texid, s, t)
     texv = V3(tex[:, 0], tex[:, 1], tex[:, 2])
     const = V3(fac[0].expand(rd.x.shape), fac[1].expand(rd.x.shape),
                fac[2].expand(rd.x.shape))
     return vwhere(textured, texv * const, const)
+
+
+def world_counts(scene, rd, enter):
+    '''The `world` counter of one world fetch, int64 [4] on rd's device
+    with no host sync: lanes fetched, lanes whose radiance enters the
+    result (enter [N] bool: alive and missing), the distinct environment
+    texels those lanes' four texel gathers read, and the environment's
+    texels (its nx * ny; the last two 0 for an untextured world).'''
+    n = rd.x.shape[0]
+    live = enter.sum()
+    zero = torch.zeros_like(live)
+    if _no_atlas(scene) or not scene.world_textured:
+        return torch.stack([live.new_full((), n), live, zero, zero])
+    atlas = scene.textures
+    texid, s, t = _world_uv(scene, rd)
+    keys = texel_keys(atlas, texid, s, t)  # [4, N]
+    slots = atlas.data[..., 0].numel()
+    mark = torch.zeros(slots + 1, dtype=torch.int32, device=rd.x.device) \
+        .index_fill_(0, torch.where(enter, keys, slots).reshape(-1), 1)
+    tid = torch.clamp_min(scene.world_tex, 0).long()
+    textured = scene.world_tex >= 0
+    reached = torch.where(textured, mark[:slots].sum(), zero)
+    texels = torch.where(textured, (atlas.nx[tid] * atlas.ny[tid]).long(),
+                         zero)
+    return torch.stack([live.new_full((), n), live, reached, texels])

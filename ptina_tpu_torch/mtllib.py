@@ -128,7 +128,9 @@ def material_rows(scene, mtlid, tex_s, tex_t):
     dict (basecolor V3, the 11 scalars [N]): the lane's factor row
     (MaterialRows), each parameter times its bilinear texture sample
     where the lane's material binds one, on a scene with a texture atlas
-    (texture.TexelRows' gathers).
+    whose table binds a texture at all (texture.TexelRows' gathers; a
+    table that binds none, as under a textured world alone, fetches no
+    texel: a factor times 1 is the factor, and its texels' gradient 0).
     The part of the fetch that holds hand-written backwards; the pair's
     recompute runs it eagerly between its captured shading segments
     (engine/fused.py).'''
@@ -141,7 +143,8 @@ def material_rows(scene, mtlid, tex_s, tex_t):
     base = V3(base_rgb[:, 0], base_rgb[:, 1], base_rgb[:, 2])
     scal = [scal_tab[:, p] for p in range(1, 12)]
 
-    if scene.textures.data.shape[1] > 1 or scene.textures.data.shape[2] > 1:
+    if mats.textured and (scene.textures.data.shape[1] > 1
+                          or scene.textures.data.shape[2] > 1):
         per_lane_tex = mats.tex[row]  # [N, 12]
         has_tex = per_lane_tex >= 0
         for p_i in range(12):

@@ -9,15 +9,20 @@ The texel gather's backward.  Each of a fetch's four texel gathers,
 `data[texid, x, y]`, goes through TexelRows: its forward is the same
 indexing (the same values bit for bit; with no grad mode, or an atlas
 that needs none, autograd records nothing), and its backward is
-texel_rows_backward.  Autograd's own gather backward, index_put_ with
-accumulate into zeros, runs on the card as a sort and a serial walk over
-each texel's lanes, most of them all-zero rows on the sky's and the
-ground's texels at uv 0.  On CUDA tensors texel_rows_backward is instead
-two launches of csrc/texel_rows.cu, which skips the lanes whose cotangent
-row is all zeros and makes the sums index_put_ makes on the card, each a
-float32 sum from +0 over the texel's lanes in lane order, so the gradient
-is the aten path's bit for bit (the kernel's note says why skipping keeps
-the bits).  On CPU tensors it is the plain twin,
+texel_rows_backward.  A fetch serves the material rows (mtllib: every
+parameter's texture at the hit's uv, the lanes that miss or hit a
+surface with no uvs reading the texels at uv 0) and a textured world
+(lights.world_at: the lanes' directions on the environment map, where
+the lanes that miss are the live ones and an orthographic camera's
+direct misses all read one texel a gather).  Autograd's own gather
+backward, index_put_ with accumulate into zeros, runs on the card as a
+sort and a serial walk over each texel's lanes, most of them all-zero
+rows on the texels at uv 0.  On CUDA tensors texel_rows_backward is
+instead two launches of csrc/texel_rows.cu, which skips the lanes whose
+cotangent row is all zeros and makes the sums index_put_ makes on the
+card, each a float32 sum from +0 over the texel's lanes in lane order, so
+the gradient is the aten path's bit for bit (the kernel's note says why
+skipping keeps the bits).  On CPU tensors it is the plain twin,
 texel_rows_backward_plain, the gather's own backward, so the CPU
 gradients are autograd's own.  The library is built at the first
 backward on the card (utils/cuda_build.py); LAUNCHES counts its launches.
@@ -37,8 +42,9 @@ from ptina_tpu_torch.utils import trace
 from ptina_tpu_torch.utils.cuda_build import (build_shared_library, ptr,
                                               raise_on, stream_ptr)
 
-__all__ = ['sample_texture', 'TexelRows', 'texel_rows_backward',
-           'texel_rows_backward_plain', 'build_library', 'LAUNCHES']
+__all__ = ['sample_texture', 'texel_keys', 'TexelRows',
+           'texel_rows_backward', 'texel_rows_backward_plain',
+           'build_library', 'LAUNCHES']
 
 LAUNCHES = {'texel_rows': 0}
 
@@ -157,9 +163,14 @@ class TexelRows(torch.autograd.Function):
             None
 
 
-def sample_texture(atlas, texid, s, t):
-    '''Bilinear wrap-around fetch.  texid, s, t: [N].  Returns [N, 4].
-    texid must be a valid row (clamp or select -1 upstream).'''
+# the (dx, dy) corner of each of a bilinear fetch's four gathers, in the
+# order sample_texture adds them
+_CORNERS = ((1, 1), (1, 0), (0, 0), (0, 1))
+
+
+def _bilinear(atlas, texid, s, t):
+    '''(texid, the corner's (x, y) indices of each of the four gathers,
+    fx, fy [N, 1]) of a bilinear wrap-around fetch.'''
     texid = texid.long()
     nx = atlas.nx[texid].long()
     ny = atlas.ny[texid].long()
@@ -169,13 +180,29 @@ def sample_texture(atlas, texid, s, t):
     iy = torch.floor(py).long()
     fx = (px - ix)[..., None]
     fy = (py - iy)[..., None]
+    corners = [(torch.remainder(ix + dx, torch.clamp_min(nx, 1)),
+                torch.remainder(iy + dy, torch.clamp_min(ny, 1)))
+               for dx, dy in _CORNERS]
+    return texid, corners, fx, fy
 
-    def fetch(dx, dy):
-        x = torch.remainder(ix + dx, torch.clamp_min(nx, 1))
-        y = torch.remainder(iy + dy, torch.clamp_min(ny, 1))
-        return TexelRows.apply(atlas.data, texid, x, y)
 
-    return (fetch(1, 1) * fx * fy
-            + fetch(1, 0) * fx * (1.0 - fy)
-            + fetch(0, 0) * (1.0 - fx) * (1.0 - fy)
-            + fetch(0, 1) * (1.0 - fx) * fy)
+def sample_texture(atlas, texid, s, t):
+    '''Bilinear wrap-around fetch.  texid, s, t: [N].  Returns [N, 4].
+    texid must be a valid row (clamp or select -1 upstream).'''
+    texid, corners, fx, fy = _bilinear(atlas, texid, s, t)
+
+    def fetch(k):
+        return TexelRows.apply(atlas.data, texid, *corners[k])
+
+    return (fetch(0) * fx * fy
+            + fetch(1) * fx * (1.0 - fy)
+            + fetch(2) * (1.0 - fx) * (1.0 - fy)
+            + fetch(3) * (1.0 - fx) * fy)
+
+
+def texel_keys(atlas, texid, s, t):
+    '''[4, N] int64: the flat atlas texel, (texid * H + x) * W + y, that
+    each of sample_texture's four gathers reads for each lane.'''
+    _, h_, w_ = atlas.data.shape[:3]
+    texid, corners, _, _ = _bilinear(atlas, texid, s, t)
+    return torch.stack([(texid * h_ + x) * w_ + y for x, y in corners])

@@ -79,6 +79,10 @@ The spans of the port, by site:
     wavefront.bounce                engine/path._bounce
     wavefront.cast (kind)           intersect/dispatch.cast_shaded /
                                     cast_shadow (kind shaded / shadow)
+    world.fetch                     engine/path._world_fetch: the
+                                    environment's radiance along a
+                                    bounce's rays, one a bounce (a
+                                    textured world's four texel gathers)
     grad.step                       diff.inverse_render_step,
                                     diff.inverse_texture_step
     grad.forward, grad.backward     diff.render_image_diff; the
@@ -109,6 +113,12 @@ The counters of add_counts, by name:
     texel_rows                      texture.texel_rows_backward: lanes
                                     walked, lanes with a nonzero
                                     cotangent row, distinct texels written
+    world                           engine/path._world_fetch
+                                    (lights.world_counts): lanes fetched,
+                                    lanes whose radiance enters the result
+                                    (alive and missing), distinct
+                                    environment texels those lanes read,
+                                    the environment's texels
 
 A span opened on a thread with no open span of its own (autograd's device
 thread, running a backward) takes as its parent the newest span still

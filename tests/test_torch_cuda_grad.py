@@ -36,7 +36,10 @@ At 64x64, 1 spp:
     replayed and the launches of the hand-written kernels the twin's;
   * five inverse steps capture once, a new lane count once more;
   * a scene tensor changed in place raises before any replay;
-  * a textured environment's scene recomputes eagerly, bit for bit.
+  * a textured environment's scene replays its graphs too (its world
+    fetch eager, five a step), bit for bit in the world factor and the
+    atlas, at 64x64 on the 64x128 map and at 512x512 on the 1024x2048
+    one.
 '''
 
 import numpy as np
@@ -363,21 +366,32 @@ def test_graphed_backward_refuses_a_scene_changed_in_place(dev):
         trace.disable()
 
 
-def test_textured_world_recomputes_eagerly(dev):
-    '''A textured environment's world_at holds a texel gather: that
-    scene's recompute takes no graph, and its gradients are the eager
-    twin's.'''
-    scene = envlight_scene(device=dev)
-    assert scene.world_textured
+@pytest.mark.parametrize('env_res,res', [((64, 128), RES),
+                                         ((1024, 2048), 512)],
+                         ids=['env64x128_64', 'env1024x2048_512'])
+def test_textured_world_replays_graphs(dev, env_res, res):
+    '''A textured environment's texel gathers run in the eager world
+    fetch (engine/path._world_fetch), five a step, between the casts and
+    the captured segments: its scene's recompute replays every shading
+    segment, and its gradients in the world factor and the atlas are the
+    eager twin's bit for bit, on the capturing call and on a replay, with
+    the twin's launches and texel backwards.'''
+    scene = envlight_scene(env_res=env_res, device=dev)
+    assert scene.world_textured and fused.fused_eligible(scene)
     trace.enable()
-    trace.reset()
     try:
-        (got, pair), (want, twin) = _pair_and_twin(
-            scene, [('world_fac',), ('textures', 'data')], RES)
-        spans = trace.summary()['traced']
+        for sample in (0, 1):
+            trace.reset()
+            (got, pair), (want, twin) = _pair_and_twin(
+                scene, [('world_fac',), ('textures', 'data')], res, sample)
+            spans = trace.summary()['traced']
+            assert spans['grad.recompute']['count'] == 1
+            assert spans['grad.shade']['count'] == 2 * DEPTH
+            assert spans['grad.shade.replay']['count'] == 2 * DEPTH
+            assert spans['world.fetch']['count'] == 2 * DEPTH  # pair, twin
+            for p, g, w in zip(('world_fac', 'data'), got, want):
+                assert torch.equal(_bits(g), _bits(w)), (p, sample)
+                assert g.abs().max() > 0, p
+            assert pair == dict(twin, path=1) and twin['texel_rows'] > 0
     finally:
         trace.disable()
-    assert spans['grad.recompute']['count'] == 1 and 'grad.shade' not in spans
-    for g, w in zip(got, want):
-        assert torch.equal(_bits(g), _bits(w)) and g.abs().max() > 0
-    assert pair == dict(twin, path=1)

@@ -17,6 +17,9 @@ CPU-only test run).  On a machine with the card:
     1,024 segments) and an atlas of three 1024 x 1024 textures
     (3,145,728 texels: the buckets are capped at 1,024, so each is split
     over two blocks of the second launch);
+  * the launch plan's edge: an atlas of 2,097,152 texels (a 1024 x 2048
+    environment, exactly 1,024 buckets of 2,048) and of 2,097,153,
+    bit for bit with the twin;
   * lanes on the first and the last texel of the atlas;
   * cotangents at a 4-byte offset or strided, indices strided or
     broadcast (stride 0);
@@ -124,6 +127,23 @@ def test_kernel_past_one_segment_group_and_uncapped_buckets(dev, shape, n,
     got = texel_rows_backward(texid, x, y, g, shape)
     torch.cuda.synchronize()
     assert texture.LAUNCHES['texel_rows'] == before + 2
+    assert _same(got, texel_rows_backward_plain(texid, x, y, g, shape))
+    assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize('pattern', ['sparse', 'dense_random', 'dense_one'])
+@pytest.mark.parametrize('shape', [(1, 1024, 2048, 4), (1, 3, 699051, 4)],
+                         ids=['2097152', '2097153'])
+def test_kernel_at_the_bucket_edge(dev, shape, pattern):
+    '''A 1024 x 2048 environment's 2,097,152 texels are exactly
+    kBucketsMax buckets of kKeys texels, the launch plan's edge; one texel
+    more caps the buckets and splits each over two blocks: the twin's
+    bits at 262,144 lanes on both sides of it.'''
+    n = 262144
+    texid, x, y, g = _inputs(pattern, shape, n, [n, len(pattern), shape[2]],
+                             dev)
+    got = texel_rows_backward(texid, x, y, g, shape)
+    torch.cuda.synchronize()
     assert _same(got, texel_rows_backward_plain(texid, x, y, g, shape))
     assert got.abs().max() > 0
 

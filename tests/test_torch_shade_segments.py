@@ -27,6 +27,7 @@ from ptina_tpu_torch.engine import fused, path as tpath
 from ptina_tpu_torch.engine.fused import fused_trace_diff
 from ptina_tpu_torch.engine.path import PATH_DIMS, pixel_grid
 from ptina_tpu_torch.intersect.dispatch import cast_shadow, cast_shaded
+from ptina_tpu_torch.lights import world_at
 from ptina_tpu_torch.mtllib import material_rows
 from ptina_tpu_torch.sampling.sobol import sample_dims
 from ptina_tpu_torch.scene import with_tensor
@@ -40,11 +41,13 @@ RES = 8
 DEPTH = 5
 TEX = np.random.RandomState(1).uniform(0.1, 0.9, (16, 16, 3)) \
     .astype(np.float32)
+ENV = (16, 32)  # the textured world's equirect map, rows x columns
 
 SCENES = {
     'cornell_box': lambda: scenes.cornell_box(device='cpu'),
     'cornell_monkey': lambda: scenes.cornell_monkey(device='cpu'),
-    'matball': lambda: scenes.matball(roughness_tex=TEX, device='cpu')}
+    'matball': lambda: scenes.matball(roughness_tex=TEX, device='cpu'),
+    'envlight': lambda: scenes.envlight_scene(env_res=ENV, device='cpu')}
 
 
 def _rays(scene, sample=0):
@@ -73,10 +76,11 @@ def _by_hand(scene, carry, u, last):
     ro, rd, throughput, result, last_brdf_pdf, avoid, alive = carry
     with torch.no_grad():
         hit, normal, tex_s, tex_t, mtlid = cast_shaded(scene, ro, rd, avoid)
+    params = material_rows(scene, mtlid, tex_s, tex_t)
     s = tpath._shade_hit(scene, dict(
         ro=ro, rd=rd, throughput=throughput, result=result,
         last_brdf_pdf=last_brdf_pdf, alive=alive, hit=hit.hit, t=hit.t,
-        normal=normal, params=material_rows(scene, mtlid, tex_s, tex_t),
+        normal=normal, params=params, world=world_at(scene, rd),
         u=u[0:3]))
     with torch.no_grad():
         occ = cast_shadow(scene, s['ro_sh'], s['rd_sh'], hit.index,
@@ -163,7 +167,10 @@ GRAD_CASES = {
                                             ('lights', 'size')]),
     'monkey_factors': ('cornell_monkey', [('materials', 'fac')]),
     'matball_all': ('matball', [('textures', 'data'), ('materials', 'fac'),
-                                ('lights', 'color'), ('world_fac',)])}
+                                ('lights', 'color'), ('world_fac',)]),
+    'envlight_world': ('envlight', [('textures', 'data'), ('world_fac',)]),
+    'envlight_all': ('envlight', [('world_fac',), ('textures', 'data'),
+                                  ('materials', 'fac'), ('lights', 'color')])}
 
 
 @pytest.mark.parametrize('case', sorted(GRAD_CASES))

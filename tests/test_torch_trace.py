@@ -183,7 +183,7 @@ def test_no_span_takes_a_harness_annotation_name():
     assert {'scene.build', 'kernels.build', 'render.sample',
             'wavefront.bounce', 'wavefront.cast', 'grad.step',
             'grad.forward', 'grad.backward', 'grad.recompute',
-            'grad.inner_backward'} <= names
+            'grad.inner_backward', 'world.fetch'} <= names
     assert not names & set(HARNESS_NAMES)
 
 
@@ -198,12 +198,15 @@ def test_wavefront_sample_span_tree_and_bits(rec, box):
     assert records[-1]['attrs'] == {'route': 'wavefront'}
     bounces = [r for r in records if r['name'] == 'wavefront.bounce']
     for b in bounces:
-        casts = [r for r in records if r['parent'] == b['id']]
-        assert [(c['name'], c['attrs']['kind']) for c in casts] == \
-            [('wavefront.cast', 'shaded'), ('wavefront.cast', 'shadow')]
+        kids = [r for r in records if r['parent'] == b['id']]
+        assert [(c['name'], c['attrs'].get('kind')) for c in kids] == \
+            [('wavefront.cast', 'shaded'), ('world.fetch', None),
+             ('wavefront.cast', 'shadow')]
     got = trace.summary()['traced']
+    assert got['world.fetch']['count'] == DEPTH
     assert got['wavefront.bounce']['self_ns'] == \
-        got['wavefront.bounce']['host_ns'] - got['wavefront.cast']['host_ns']
+        got['wavefront.bounce']['host_ns'] \
+        - got['wavefront.cast']['host_ns'] - got['world.fetch']['host_ns']
 
 
 def _target(seed=0):
